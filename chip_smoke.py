@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc`` and drives the port through four phases, each printing one JSON
+line; any failed check raises and the script exits non-zero:
+
+1. device: the card's name and power limit (``nvidia-smi``) and the kernel
+   build time;
+2. kernels: each CUDA kernel against its plain PyTorch version on the card
+   (see `compare` for the tolerances), with its time, the plain version's,
+   the least time the card could take (``bound_ms``) and one PyTorch
+   library call's (``F.scaled_dot_product_attention``, a yardstick the port
+   never calls);
+3. serve: llama3-8b at full width (32 layers, random weights from a seed)
+   behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
+   arriving 150 ms apart, 4 slots, 32 new tokens each; every request
+   published exactly once, some admitted mid-batch, and both kernels'
+   launch counters > 0 during this phase;
+4. consistency: llama3-8b width at 2 layers in fp32 (TF32 off), prefill and
+   4 decode steps on the card (kernels) against the same weights on the CPU
+   (plain versions): identical greedy tokens, logits within 2e-3.
+
+The line before the last lists every kernel (name, route, source, the TPU
+kernel it replaces, launches in phase 3, error and times at the serving
+shapes); the last line is the result object.  Without a GPU, or without
+the repository beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
+DECODE_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
+SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def compare(out, exp, fp32: bool):
+    """(ok, max_abs_err, worst error / limit) of a kernel's output against
+    its plain version's.  fp32: |out - exp| <= 2e-5 + 2e-5 |exp|.  bf16
+    output: both sides are fp32 results rounded to bf16, so they may differ
+    by one bf16 step; each element's limit is the smaller of that step at
+    the largest value of its output row (+1e-5) and the 2e-2 bar of
+    `tests/test_kernels.py`.  Outputs of long rows are small, so a kernel
+    that drops or double-counts part of a row fails this by far."""
+    out, exp = out.float(), exp.float()
+    err = (out - exp).abs()
+    mag = exp.abs()
+    if fp32:
+        lim = 2e-5 + 2e-5 * mag
+    else:
+        lim = (BF16_ULP * mag.amax(-1, keepdim=True) + 1e-5).minimum(2e-2 + 2e-2 * mag)
+    ratio = (err / lim).max().item()
+    return ratio <= 1.0, err.max().item(), ratio
+
+
+def time_ms(torch, fn, iters: int, flush) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, each timed with
+    CUDA events after the L2 cache is overwritten (cold cache, as a layer's
+    cache slice is in the serving loop).  A spin kernel ahead of the start
+    event keeps the device busy while the host enqueues ``fn``, so the
+    events see device time, not the wrapper's host overhead (which
+    `call_ms` reports)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def call_ms(torch, fn, iters: int = 20) -> float:
+    """Host-clock time per call of ``fn`` back to back, ending in a
+    synchronize: what a caller pays, host overhead included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def decode_case(torch, F, dmod, flush, dev, name, B, S, K, G, D, clen, q_dt, kv_dt,
+                window=None, cap=None):
+    g = torch.Generator(device=dev).manual_seed(B * S + G)
+    H = K * G
+    q = torch.randn((B, H, D), generator=g, device=dev).to(getattr(torch, q_dt))
+    kc = torch.randn((B, S, K, D), generator=g, device=dev).to(getattr(torch, kv_dt))
+    vc = torch.randn((B, S, K, D), generator=g, device=dev).to(getattr(torch, kv_dt))
+    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+    kw = dict(window=window, logit_cap=cap)
+    out = dmod.decode_attention(q, kc, vc, cl, **kw)
+    exp = dmod.decode_attention_plain(q, kc, vc, cl, **kw)
+    torch.cuda.synchronize()
+    ok, err, ratio = compare(out, exp, q_dt == "float32")
+    live = [n - (max(0, n - window) if window else 0) for n in clen]
+    nbytes = 2 * q.numel() * q.element_size() + cl.numel() * 4 \
+        + sum(live) * K * D * 2 * kc.element_size()
+    flops = 4.0 * D * H * sum(live)
+    b_ms, b_by = bound(nbytes, flops, "float32" if "float32" in (q_dt, kv_dt) else "bfloat16")
+    lib_ms = None
+    if cap is None:  # SDPA has no softcap
+        pos = torch.arange(S, device=dev)[None, :]
+        valid = pos < cl[:, None]
+        if window:
+            valid &= pos > cl[:, None] - 1 - window
+        mask = valid[:, None, None, :]
+        # SDPA takes one dtype: q is cast to the cache's once, outside the
+        # timing (bf16 -> fp32 is exact, so the function is the same)
+        q4, k4, v4 = q.to(kc.dtype)[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True), 20, flush)
+    row = {
+        "phase": "kernel", "kernel": "decode_attention", "case": name,
+        "B": B, "S": S, "H": H, "K": K, "D": D, "cache_len": clen,
+        "q_dtype": q_dt, "cache_dtype": kv_dt, "window": window, "softcap": cap,
+        "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
+        "kernel_ms": time_ms(torch, lambda: dmod.decode_attention(q, kc, vc, cl, **kw), 50, flush),
+        "call_ms": call_ms(torch, lambda: dmod.decode_attention(q, kc, vc, cl, **kw)),
+        "plain_ms": time_ms(torch, lambda: dmod.decode_attention_plain(q, kc, vc, cl, **kw), 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    }
+    emit(row)
+    check(ok, f"decode_attention {name}: error {ratio:.3g}x its limit (max_abs_err {err})")
+    return row
+
+
+def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
+               causal=True, window=None, cap=None, q_offset=0):
+    g = torch.Generator(device=dev).manual_seed(B * Sq + Sk + G)
+    H = K * G
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(getattr(torch, dt))
+    k = torch.randn((B, Sk, K, D), generator=g, device=dev).to(getattr(torch, dt))
+    v = torch.randn((B, Sk, K, D), generator=g, device=dev).to(getattr(torch, dt))
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset)
+    out = fmod.flash_attention(q, k, v, **kw)
+    exp = fmod.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ok, err, ratio = compare(out, exp, dt == "float32")
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    pairs = int(mask.sum().item())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, 4.0 * D * H * B * pairs, dt)
+    lib_ms = None
+    if cap is None:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if causal and not window and q_offset == 0 and Sq == Sk:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib_ms = time_ms(torch, lib, 10, flush)
+    row = {
+        "phase": "kernel", "kernel": "flash_attention", "case": name,
+        "B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": K, "D": D, "dtype": dt,
+        "causal": causal, "window": window, "softcap": cap, "q_offset": q_offset,
+        "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
+        "kernel_ms": time_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw), 10, flush),
+        "call_ms": call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
+        "plain_ms": time_ms(torch, lambda: fmod.flash_attention_plain(q, k, v, **kw), 5, flush),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    }
+    emit(row)
+    check(ok, f"flash_attention {name}: error {ratio:.3g}x its limit (max_abs_err {err})")
+    return row
+
+
+def phase_kernels(torch, dmod, fmod, dev):
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    S = 4096
+    clen8 = [S, S // 2, 17, 1, 3000, 1024, S - 1, 512]
+    rows = {"decode_attention": [], "flash_attention": []}
+    d = lambda *a, **k: rows["decode_attention"].append(  # noqa: E731
+        decode_case(torch, F, dmod, flush, dev, *a, **k))
+    f = lambda *a, **k: rows["flash_attention"].append(  # noqa: E731
+        flash_case(torch, F, fmod, flush, dev, *a, **k))
+    # the serving shapes of phase 3 first: 4 slots x 1024 positions, llama3-8b
+    # heads, bf16 q against the default fp32 cache; prefill groups of one
+    # prompt (requests arrive apart), right-padded to a multiple of 16: the
+    # longest (300 -> 304) and the shortest (16, one block of 16 live rows)
+    d("serve", 4, 1024, 8, 4, 128, [332, 48, 305, 17], "bfloat16", "float32")
+    f("serve-304", 1, 304, 304, 8, 4, 128, "bfloat16")
+    f("serve-16", 1, 16, 16, 8, 4, 128, "bfloat16")
+    for G in (4, 8):
+        d(f"g{G}-bf16", 8, S, 8, G, 128, clen8, "bfloat16", "bfloat16")
+        d(f"g{G}-bf16q-f32cache", 8, S, 8, G, 128, clen8, "bfloat16", "float32")
+    d("g4-f32", 8, S, 8, 4, 128, clen8, "float32", "float32")
+    d("g4-window1024", 8, S, 8, 4, 128, clen8, "bfloat16", "bfloat16", window=1024)
+    d("g4-softcap50", 8, S, 8, 4, 128, clen8, "bfloat16", "bfloat16", cap=50.0)
+    for Sq in (77, 512):
+        for dt in ("bfloat16", "float32"):
+            f(f"causal-{Sq}-{dt}", 4, Sq, Sq, 8, 4, 128, dt)
+    f("window128-512", 4, 512, 512, 8, 4, 128, "bfloat16", window=128)
+    f("softcap50-512", 4, 512, 512, 8, 4, 128, "bfloat16", cap=50.0)
+    f("qoffset435-77x512", 4, 77, 512, 8, 4, 128, "bfloat16", q_offset=435)
+    f("full-512-f32", 4, 512, 512, 8, 4, 128, "float32", causal=False)
+    del flush
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: llama3-8b at full width behind the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+def phase_serve(torch, np, port, dev, card):
+    cfg = port["CONFIGS"]["llama3-8b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = port["init_params"](cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in port["tree_flatten"](params)[0])
+    scfg = port["ServeConfig"](max_batch=4, max_len=1024, max_new_tokens=32)
+    eng = port["ContinuousEngine"](cfg, params, scfg, device=dev)
+    eng.admit([("warm", [1, 2, 3], 2)])  # allocator and first-call warmup
+    while eng.n_live():
+        eng.step_chunk()
+    for k in eng.stats:
+        eng.stats[k] = 0
+
+    rp, store, kv = port["rp"], port["ObjectStore"](), port["KVStore"](num_shards=2)
+    rng = np.random.default_rng(0)
+    lens = [16, 300, 57, 128, 200, 33, 271, 90]
+    ids = [f"req-{i}" for i in range(len(lens))]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+
+    def client():  # open-loop arrivals, so requests join a running batch
+        for r, p in zip(ids, prompts):
+            rp.submit(store, kv, r, p)
+            time.sleep(SUBMIT_GAP_S)
+
+    dmod, fmod = port["dmod"], port["fmod"]
+    dmod.decode_attention.launches = 0
+    fmod.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    sender = threading.Thread(target=client, name="chip-smoke-client")
+    sender.start()
+    stats = eng.run(store, kv, engine_id="chip", idle_timeout_s=5.0, max_requests=len(ids))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sender.join(timeout=60)
+    check(not sender.is_alive(), "client thread did not finish")
+    launches = {
+        "decode_attention": dmod.decode_attention.launches,
+        "flash_attention": fmod.flash_attention.launches,
+    }
+
+    res = rp.get_results(store, ids, timeout_s=10)
+    bodies = store.get_many([rp.req_key(r) for r in ids], missing="error")
+    markers = {r: [c for c in kv.lrange(rp.stream_key(r)) if "done" in c] for r in ids}
+    ttft = sorted(res[r]["t_first"] - bodies[rp.req_key(r)]["ts"] for r in ids)
+    row = {
+        "phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n_params, "init_s": init_s, "max_batch": 4, "max_len": 1024,
+        "cache_dtype": scfg.cache_dtype, "requests": len(ids), "prompt_lens": lens,
+        "published": len(res), "served": stats["served"], "tokens_out": stats["tokens_out"],
+        "wall_s": wall, "tok_per_s": stats["tokens_out"] / wall,
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+        "decode_steps": stats["decode_steps"], "prefill_groups": stats["prefill_groups"],
+        "mid_batch_admissions": stats["mid_batch_admissions"],
+        "launches": launches, "card": card,
+    }
+    emit(row)
+    check(stats["served"] == len(ids) and len(res) == len(ids), "not every request was served")
+    for r in ids:
+        toks = res[r]["tokens"]
+        check(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{r}: {len(toks)} tokens, expected 32 in range")
+        check(len(markers[r]) == 1 and markers[r][0]["done"] == 32,
+              f"{r}: published {len(markers[r])} times")
+    check(stats["mid_batch_admissions"] > 0, "no request was admitted mid-batch")
+    for name, n in launches.items():
+        check(n > 0, f"{name} kernel never launched on the main path")
+    profile_decode(torch, np, eng, cfg, n_params)
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_decode(torch, np, eng, cfg, n_params, n_steps=8):
+    """Where a decode step's time goes with all 4 slots live: host-clock step
+    time, device-busy time per step (the sum of the kernels `torch.profiler`
+    saw, one stream so no overlap), the idle share, and the kernels that take
+    the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    eng.admit([(f"prof-{i}", rng.integers(0, cfg.vocab_size, size=n).tolist(), 10**6)
+               for i, n in enumerate((16, 300, 57, 128))])
+    eng.step_chunk(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step_chunk(n_steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step_chunk(n_steps)
+        torch.cuda.synchronize()
+    # device-side events only: an operator's entry repeats its kernels' time
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n_steps
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    emit({
+        "phase": "serve_profile", "live_slots": 4, "steps": n_steps,
+        "profiler_saw_device": bool(ev),
+        "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+        "weights_bound_ms": n_params * 2 / HBM_BYTES_PER_S * 1e3,
+        "top_device_ms_per_step": [
+            [e.key[:80], e.self_device_time_total / 1e3 / n_steps, e.count // n_steps] for e in top
+        ],
+    })
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the card against the CPU at full width, 2 layers, fp32
+# ---------------------------------------------------------------------------
+
+def phase_consistency(torch, port, dev):
+    cfg = dataclasses.replace(
+        port["CONFIGS"]["llama3-8b"], n_layers=2, dtype="float32", param_dtype="float32"
+    )
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p_gpu = port["init_params"](cfg, gen, dev)
+    p_cpu = port["tree_map"](lambda t: t.cpu(), p_gpu)
+    prefill, decode_step, init_cache = port["prefill"], port["decode_step"], port["init_cache"]
+    lens = torch.tensor([48, 37])
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(2))
+    results = {}
+    for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
+        cache = init_cache(cfg, 2, 64, torch.float32, d)
+        logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d)}, cache, all_logits=True)
+        last = logits[torch.arange(2, device=d), (lens - 1).to(d)]
+        steps, tok, clen = [last.cpu()], last.argmax(-1), lens.to(d).to(torch.int32)
+        picked = [tok.cpu()]
+        for _ in range(4):
+            lg, cache = decode_step(p, cfg, tok[:, None], cache, clen)
+            clen = clen + 1
+            tok = lg[:, 0].argmax(-1)
+            steps.append(lg[:, 0].cpu())
+            picked.append(tok.cpu())
+        results[name] = (torch.stack(steps), torch.stack(picked))
+    (lg_g, tk_g), (lg_c, tk_c) = results["cuda"], results["cpu"]
+    err = (lg_g - lg_c).abs().max().item()
+    same = bool(torch.equal(tk_g, tk_c))
+    close = bool(torch.allclose(lg_g, lg_c, atol=2e-3, rtol=1e-3))
+    emit({
+        "phase": "consistency", "arch": cfg.name, "n_layers": 2, "dtype": "float32",
+        "tf32": torch.backends.cuda.matmul.allow_tf32, "decode_steps": 4,
+        "greedy_tokens_cuda": tk_g.T.tolist(), "greedy_tokens_cpu": tk_c.T.tolist(),
+        "tokens_identical": same, "max_abs_logit_err": err, "tol": 2e-3, "ok": same and close,
+    })
+    check(same, "greedy tokens differ between cuda and cpu")
+    check(close, f"logits differ by {err} > 2e-3")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import CONFIGS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+    from repro_torch.serve import request_plane as rp
+    from repro_torch.storage import KVStore, ObjectStore
+    from repro_torch.util import tree_flatten, tree_map
+
+    port = dict(
+        CONFIGS=CONFIGS, dmod=dmod, fmod=fmod, decode_step=decode_step, init_cache=init_cache,
+        init_params=init_params, prefill=prefill, ContinuousEngine=ContinuousEngine,
+        ServeConfig=ServeConfig, rp=rp, KVStore=KVStore, ObjectStore=ObjectStore,
+        tree_flatten=tree_flatten, tree_map=tree_map,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # phase 1: device and kernel build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name in _build.KERNELS:
+        print(f"[{name}] " + (_build.ptxas_report(name) or "(cached build)"), file=sys.stderr)
+    card = torch.cuda.get_device_name(0)
+    emit({
+        "phase": "device", "nvidia_smi": smi, "kind": card, "count": torch.cuda.device_count(),
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "build_s": build_s, "build_s_per_kernel": build,
+    })
+
+    rows = phase_kernels(torch, dmod, fmod, dev)
+    launches = phase_serve(torch, np, port, dev, card)
+    phase_consistency(torch, port, dev)
+
+    replaces = {
+        "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
+        "flash_attention": ("src/repro/kernels/flash_attention.py:112", FLASH_SRC),
+    }
+    kernels = []
+    for name, (rep, src) in replaces.items():
+        serve_row = rows[name][0]  # the phase-3 serving shape (flash: longest group)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": serve_row["kernel_ms"], "plain_ms": serve_row["plain_ms"],
+            "bound_ms": serve_row["bound_ms"], "bound_by": serve_row["bound_by"],
+            "library_ms": serve_row["library_ms"],
+        })
+    print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

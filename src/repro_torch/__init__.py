@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of the `repro` compute layer, for one NVIDIA H100.
+
+Mirrors the JAX package's module layout (`configs/`, `kernels/`, `models/`,
+`storage/`, `serve/`, `launch/`) so each module's counterpart is easy to
+find.  It imports `torch`, numpy and the standard library only — never
+`jax`, never `repro` — and keeps its own copies of the framework-free
+modules it needs.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+asking for ``cuda`` without a GPU raises (see :func:`resolve_device`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default.
+
+    Raises instead of quietly falling back to the CPU when CUDA is asked
+    for and no GPU is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' (--device cpu) to run the plain versions"
+        )
+    return dev
+
+
+__all__ = ["resolve_device"]

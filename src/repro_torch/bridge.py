@@ -1,0 +1,46 @@
+"""JAX parameter trees, as numpy arrays, -> the port's parameters.
+
+The JAX package stacks a dense decoder's layer weights as (outer, period,
+...) (`decoder_stage_init`); the port keeps a list of per-layer dicts, so
+the conversion unstacks layer ``o * period + i`` from ``leaf[o, i]``.
+Weight layouts are the same on both sides (`wq (D, H, hd)`, `wo (H, hd,
+D)`, `w_gate (D, F)`), so no leaf is transposed.
+
+bf16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
+``torch.from_numpy`` rejects: they are recognised by ``dtype.name`` and
+reinterpreted through ``uint16``.  Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import layer_period
+from repro_torch.util import tree_map
+
+
+def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+    a = np.array(a, copy=True)  # own, writable, contiguous
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
+    """Convert a dense model's JAX parameter tree (leaves as numpy arrays)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    period = layer_period(cfg)
+    outer = cfg.n_layers // period
+    conv = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    out = {k: tree_map(conv, v) for k, v in tree.items() if k != "decoder"}
+    out["decoder"] = [
+        tree_map(lambda a, o=o, i=i: conv(a[o, i]), tree["decoder"])
+        for o in range(outer)
+        for i in range(period)
+    ]
+    return out

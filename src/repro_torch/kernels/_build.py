@@ -1,0 +1,108 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so it
+compiles in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+        -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
+
+The library name carries a hash of the sources and flags, so an edited
+kernel is rebuilt and an unchanged one is loaded as it is.  Builds happen
+at first use, never at import; :func:`build_all` starts one ``nvcc`` per
+source at once.  A build that fails raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+KERNELS = ("decode_attention", "flash_attention")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch_kernels`` at the root of the checkout (``build/``
+    is git-ignored)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cand.append(shutil.which("nvcc") or "")
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every named kernel not yet built, one ``nvcc`` each, all
+    started together.  Returns seconds per name (0.0 where already built);
+    ``ptxas`` register/spill reports go to ``<name>.log`` beside the
+    library."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    t0 = time.perf_counter()
+    times: Dict[str, float] = {}
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists():
+            times[name] = 0.0
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append((name, lib, tmp, p))
+    errors = []
+    for name, lib, tmp, p in procs:
+        log, _ = p.communicate()
+        times[name] = time.perf_counter() - t0
+        (out / f"{name}.log").write_text(log)
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {name} (rc {p.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return times
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _LOADED.setdefault(name, ctypes.CDLL(str(_lib_path(name))))
+    return lib
+
+
+def ptxas_report(name: str) -> Optional[str]:
+    """The ``ptxas -v`` lines of the last build of ``name``, if any."""
+    log = build_dir() / f"{name}.log"
+    if not log.exists():
+        return None
+    return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l)

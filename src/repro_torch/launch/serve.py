@@ -1,0 +1,117 @@
+"""Serving engine worker, PyTorch port: one continuous-batching engine over
+the request plane (port of `repro.launch.serve`).
+
+Self-contained demo (in-memory stores; submits its own requests and serves
+them), on the GPU by default:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --demo-requests 8
+
+and on the CPU at a reduced width (the plain attention path):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --demo-requests 4
+
+The worker prints ``READY <engine-id>`` after warmup so orchestrators can
+wait for it, and a stats line on idle exit.  Weights are random, from
+seed 0.  Shared file stores (``--kv-root``/``--obj-root``) come with a
+later slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import CONFIGS
+from repro_torch.models import init_params
+from repro_torch.serve import ContinuousEngine, ServeConfig
+from repro_torch.serve import request_plane as rp
+from repro_torch.storage import KVStore, ObjectStore
+
+
+def build_engine(args) -> ContinuousEngine:
+    cfg = CONFIGS[args.arch]
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(cfg, gen, device)
+    scfg = ServeConfig(
+        max_batch=args.batch,
+        max_len=args.max_len,
+        max_new_tokens=args.new_tokens,
+        decode_chunk=args.decode_chunk,
+        n_queues=args.queues,
+        lease_timeout_s=args.lease_timeout,
+        cache_dtype=args.cache_dtype,
+    )
+    engine = ContinuousEngine(cfg, params, scfg, device=device)
+    # build the kernels and warm the allocator before READY
+    engine.admit([("warm", [1, 2, 3], 2)])
+    while engine.n_live():
+        engine.step_chunk()
+    for k in engine.stats:
+        engine.stats[k] = 0
+    return engine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(CONFIGS))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--cache-dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--kv-root", help="shared file KV directory (later slice)")
+    ap.add_argument("--obj-root", help="shared file object directory (later slice)")
+    ap.add_argument("--engine-id", default="engine-0")
+    ap.add_argument("--idle-timeout", type=float, default=5.0,
+                    help="exit after the queue stays empty this long (s)")
+    ap.add_argument("--batch", type=int, default=4, help="decode slots")
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--decode-chunk", type=int, default=8,
+                    help="decode steps between admission/stream boundaries")
+    ap.add_argument("--queues", type=int, default=1, help="serve/q/ shard count")
+    ap.add_argument("--lease-timeout", type=float, default=2.0)
+    ap.add_argument("--demo-requests", type=int, default=0,
+                    help="submit this many synthetic requests first (in-memory stores)")
+    args = ap.parse_args(argv)
+
+    if args.kv_root or args.obj_root:
+        ap.error("--kv-root/--obj-root: the file-backed stores come with a later "
+                 "slice of the port; use --demo-requests N (in-memory stores)")
+    if not args.demo_requests:
+        ap.error("give --demo-requests N (the port has in-memory stores only)")
+    kv = KVStore(num_shards=2)
+    store = ObjectStore()
+
+    engine = build_engine(args)
+    print(f"READY {args.engine_id}", flush=True)
+
+    rng = np.random.default_rng(0)
+    for i in range(args.demo_requests):
+        prompt = rng.integers(0, engine.cfg.vocab_size, size=int(rng.integers(4, 16))).tolist()
+        rp.submit(store, kv, f"req-{i:04d}", prompt, n_queues=args.queues)
+    print(f"submitted {args.demo_requests} requests", flush=True)
+
+    t0 = time.time()
+    stats = engine.run(store, kv, engine_id=args.engine_id, idle_timeout_s=args.idle_timeout)
+    dt = time.time() - t0
+    print(
+        f"{args.engine_id}: served {stats['served']} requests, "
+        f"{stats['tokens_out']} tokens in {dt:.1f}s "
+        f"({stats['tokens_out'] / max(dt, 1e-9):.1f} tok/s; "
+        f"{stats['mid_batch_admissions']} mid-batch admissions, "
+        f"{stats['decode_steps']} decode steps)",
+        flush=True,
+    )
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,168 @@
+"""Model facade for the dense family: init / forward / prefill / decode
+(port of `repro.models.model`).
+
+Parameters: {"embed": {"tok": (V, D)}, "final_norm": (D,), "lm_head": (D, V)
+unless tied, "decoder": [per-layer dict, ...]}.  Caches: {"decoder":
+[{"k", "v"} per layer]}, each (B, S, K, hd), updated in place.
+
+Other families raise `NotImplementedError` naming the ROADMAP.md slice
+that brings them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+from . import attention as attn
+from . import transformer as tfm
+from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
+
+Batch = Dict[str, torch.Tensor]
+
+_LATER = {
+    "moe": "slice 3 (MLA + MoE)",
+    "hybrid": "slice 3 (Mamba2 hybrid)",
+    "ssm": "slice 3 (xLSTM)",
+    "encdec": "slice 3 (whisper enc-dec)",
+    "vlm": "slice 3 (VLM prefix)",
+}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        later = _LATER.get(cfg.family, "a later slice")
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see ROADMAP.md, {later}"
+        )
+
+
+def init_params(
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device, None] = None,
+) -> Params:
+    """Random weights with the JAX initialisers' distributions, on ``device``
+    (``cuda`` by default).  ``generator`` must live on that device; by
+    default one seeded with 0."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(dtype=dtype_of(cfg.param_dtype), device=dev)
+    p: Params = {
+        "embed": {"tok": embed_init(generator, cfg.vocab_size, cfg.d_model, **kw)},
+        "final_norm": rmsnorm_init(cfg.d_model, **kw),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(generator, cfg.d_model, cfg.vocab_size, **kw)
+    p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers, **kw)
+    return p
+
+
+def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    h = p["embed"]["tok"][tokens]
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
+    return h
+
+
+def head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """(D, V) output head (tied or separate)."""
+    return p["embed"]["tok"].T if cfg.tie_embeddings else p["lm_head"]
+
+
+def _lm_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(h, p["final_norm"], eps=cfg.rms_eps)
+    logits = (h @ head_weight(p, cfg)).float()
+    return softcap(logits, cfg.final_softcap)
+
+
+def forward(p: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V) fp32."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h, _ = tfm.decoder_stage_apply(p["decoder"], h, cfg, positions=positions)
+    return _lm_logits(p, cfg, h)
+
+
+def init_cache(
+    cfg: ModelConfig,
+    batch_size: int,
+    max_len: int,
+    cache_dtype=torch.bfloat16,
+    device: Union[str, torch.device, None] = None,
+) -> Dict[str, Any]:
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return {
+        "decoder": [
+            attn.init_kv_cache(cfg, batch_size, max_len, cache_dtype, dev)
+            for _ in range(cfg.n_layers)
+        ]
+    }
+
+
+def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Tree of ints: the batch axis of each cache leaf (all 0: layers are a
+    list, not a stacked leading axis).  Feeds `cache_update.insert_rows`."""
+    _check_family(cfg)
+    return {"decoder": [{"k": 0, "v": 0} for _ in range(cfg.n_layers)]}
+
+
+def prefill(
+    p: Params,
+    cfg: ModelConfig,
+    batch: Batch,
+    cache: Dict[str, Any],
+    *,
+    all_logits: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, Any], int]:
+    """Process the prompt; returns (last-token logits, cache, new_len).
+
+    ``all_logits=True`` returns logits for every prompt position (B, S, V):
+    the continuous-batching prefill right-pads prompts and takes each
+    row's logits at its own last true token."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h, cache = tfm.decoder_stage_apply(
+        p["decoder"], h, cfg, positions=positions, cache=cache["decoder"], cache_len=0
+    )
+    logits = _lm_logits(p, cfg, h if all_logits else h[:, -1:])
+    return logits, {"decoder": cache}, tokens.shape[1]
+
+
+def decode_step(
+    p: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, 1)
+    cache: Dict[str, Any],
+    cache_len,  # int, or (B,) int tensor of per-slot lengths
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token decode; returns (logits (B, 1, V), cache).
+
+    A (B,) ``cache_len`` is the continuous-batching form: every row decodes
+    at its own position, so positions are (B, 1) and the cache write and
+    the attention mask are per row."""
+    _check_family(cfg)
+    dev = tokens.device
+    h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
+    if isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1:
+        cache_len = cache_len.to(device=dev, dtype=torch.int32)
+        positions = cache_len[:, None]
+    else:
+        cache_len = int(cache_len)
+        positions = torch.tensor([cache_len], device=dev)
+    h, layers = tfm.decoder_stage_apply(
+        p["decoder"], h, cfg, positions=positions, cache=cache["decoder"], cache_len=cache_len,
+        attend_len=attn.decode_lengths(cache_len, tokens.shape[0], dev),
+    )
+    return _lm_logits(p, cfg, h), {"decoder": layers}

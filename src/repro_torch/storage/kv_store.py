@@ -1,0 +1,402 @@
+"""Redis-semantics low-latency KV store: the coordination plane.
+
+The in-memory `KVStore` of `repro.storage.kv_store`, cut down to the verbs
+the serving request plane uses (`mget`, `scan`, `eval_many`, `rpush`,
+`rpush_many`, `rpush_nowait`, `lpop_n`, `blpop`, `lrange`, `llen`,
+`shard_seq`, `wait_key`) and copied so that the port imports nothing of the
+JAX package; the file-log and wire tiers come with a later slice.
+
+  * sharded keyspace (crc32 over N shards), one lock per shard;
+  * ``eval_many`` -- pipelined server-side scripting (Redis EVAL): each
+    update runs atomically per key under its shard lock; an update may
+    return :data:`DELETE` to delete the key in the same step;
+  * batched verbs group their keys by shard and are charged one amortized
+    round-trip per shard touched; each touched shard's sequence is bumped
+    once per batch;
+  * per-shard watch conditions: consumers snapshot ``shard_seq(key)``,
+    check, then block in ``wait_key`` (keyed wakes) or ``blpop``.
+
+Each op is charged virtual wire time from a
+:class:`~repro_torch.storage.perf_model.StorageProfile` and recorded per
+shard.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import zlib
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+from .object_store import Ledger, OpRecord, _Endpoint
+from .perf_model import REDIS_2017, StorageProfile
+
+# Sentinel an ``eval``/``eval_many`` update function may return to delete
+# the key atomically instead of storing a value — the Redis-script idiom
+# ``if ok then redis.call('DEL', key) end`` used by fenced lease releases:
+# compare-epoch-then-delete must be one atomic step or a zombie's heartbeat
+# could slip between the compare and the delete.  It must survive a pickle
+# round-trip as the SAME object (update closures ship to repro-kvd, whose
+# ``is DELETE`` check runs in another process), so it reduces to the
+# module singleton rather than to a fresh anonymous ``object()``.
+class _DeleteSentinel:
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "DELETE"
+
+    def __reduce__(self):
+        return (_delete_sentinel, ())
+
+
+def _delete_sentinel() -> "_DeleteSentinel":
+    return DELETE
+
+
+DELETE = _DeleteSentinel()
+
+
+def kv_pure(fn):
+    """Mark an eval function as PURE for the KV engines: it neither mutates
+    its argument in place nor is its key's stored value mutated in place by
+    any other writer.  A wire server may then hand the stored object to the
+    function directly and return it as the pre-image without the defensive
+    ``pickle`` deep-copy it otherwise pays per key (material on eval-heavy
+    hot paths — lease records carry whole task specs).  Purity survives the
+    wire: partials of a marked module function pickle by reference, so the
+    marker is on the server-side unpickled function too."""
+    fn.__kv_pure__ = True
+    return fn
+
+
+@dataclass
+class ShardStats:
+    ops: int = 0
+    bytes_in: int = 0
+    bytes_out: int = 0
+    vtime_s: float = 0.0
+
+
+# How many (seq, keys) touch records each shard remembers for keyed wakes —
+# the KV mirror of ``_Backend._RECENT_PUTS`` in object_store.py.
+_SHARD_RECENT = 512
+
+
+class _Shard:
+    def __init__(self, idx: int) -> None:
+        self.idx = idx
+        self.lock = threading.RLock()
+        # Watch condition shares the shard lock: writers notify while
+        # already holding it, so notification adds no extra locking.
+        self.cond = threading.Condition(self.lock)
+        self.seq = 0  # monotonically increasing write sequence
+        self.data: Dict[str, Any] = {}
+        self.stats = ShardStats()
+        # Ring of (seq, frozenset(keys) | None) per touch: lets keyed
+        # waiters prove a wake named only other keys.  None = unknown
+        # (virtual touch, cross-process file watch, ring overflow).
+        self.recent: deque = deque(maxlen=_SHARD_RECENT)
+        self.skipped_wakes = 0  # foreign-key wakes absorbed by wait_key
+
+    def touch(self, keys: Optional[Iterable[str]] = None) -> None:
+        """Record a write: bump the sequence, wake every shard watcher.
+        ``keys`` names what the write touched so keyed waiters
+        (:meth:`KVStore.wait_key`) can absorb wakes that provably do not
+        concern them; ``None`` means unknown — treat as touching anything.
+        Must be called with the shard lock held."""
+        self.seq += 1
+        self.recent.append((self.seq, None if keys is None else frozenset(keys)))
+        self.cond.notify_all()
+
+
+def _sizeof(value: Any) -> int:
+    if isinstance(value, bytes):
+        return len(value)
+    if isinstance(value, str):
+        return len(value.encode())
+    if isinstance(value, (int, float)):
+        return 8
+    if hasattr(value, "nbytes"):
+        return int(value.nbytes)
+    if isinstance(value, (list, tuple)):
+        return sum(_sizeof(v) for v in value) + 8
+    if isinstance(value, dict):
+        return sum(_sizeof(k) + _sizeof(v) for k, v in value.items()) + 8
+    return 64  # opaque
+
+
+class KVStore(_Endpoint):
+    """Sharded in-memory KV store with Redis-like atomic ops."""
+
+    def __init__(
+        self,
+        num_shards: int = 1,
+        profile: StorageProfile = REDIS_2017,
+        ledger: Optional[Ledger] = None,
+        *,
+        charged: bool = True,
+    ) -> None:
+        if num_shards < 1:
+            raise ValueError("num_shards >= 1")
+        self.num_shards = num_shards
+        self.profile = profile
+        self.ledger = ledger or Ledger()
+        # charged=False skips per-op accounting entirely — for engine-role
+        # handles whose ledger nobody reads (the repro-kvd server charges
+        # nothing; its CLIENTS charge, so the modeled ledger is theirs).
+        self.charged = charged
+        self._shards = [_Shard(i) for i in range(num_shards)]
+        self._register_endpoint()
+
+    # ---- sharding ------------------------------------------------------
+    def shard_of(self, key: str) -> int:
+        return zlib.crc32(key.encode()) % self.num_shards
+
+    def _shard(self, key: str) -> _Shard:
+        return self._shards[self.shard_of(key)]
+
+    def _charge(
+        self, shard: _Shard, worker: str, op: str, key: str, nbytes: int, write: bool
+    ) -> None:
+        if not self.charged:
+            return
+        vt = self.profile.write_time(nbytes) if write else self.profile.read_time(nbytes)
+        shard.stats.ops += 1
+        shard.stats.vtime_s += vt
+        if write:
+            shard.stats.bytes_in += nbytes
+        else:
+            shard.stats.bytes_out += nbytes
+        self.ledger.record(OpRecord(worker, op, key, nbytes, vt, time.monotonic()))
+
+    # ---- per-shard watch (notification plane) ---------------------------
+    def shard_seq(self, key: str) -> int:
+        """Snapshot the write sequence of ``key``'s shard; pass to
+        :meth:`wait_key`.  Snapshot-then-check-then-wait makes an in-process
+        write impossible to miss."""
+        sh = self._shard(key)
+        with sh.lock:
+            return sh.seq
+
+    def wait_key(self, key: str, last_seq: int, timeout_s: float) -> int:
+        """Block until a write lands on ``key`` — not merely its shard —
+        after the ``last_seq`` snapshot (or the timeout elapses); returns
+        the current sequence.  Wakes are *keyed*: every touch records which
+        keys it wrote (a ``puts_since``-style ring, mirroring the object
+        store), and a wake whose key set provably excludes ``key`` is
+        absorbed here instead of bouncing the caller into a futile
+        predicate re-check.  A wake with unknown keys (virtual touch,
+        cross-process file watch, ring overflow) conservatively returns.
+        Callers still loop and re-check their own predicate, exactly like
+        ``ObjectStore.wait_put``."""
+        sh = self._shard(key)
+        deadline = time.monotonic() + timeout_s
+        with sh.lock:
+            while True:
+                if sh.seq != last_seq:
+                    if self._touched(sh, key, last_seq):
+                        return sh.seq
+                    sh.skipped_wakes += 1
+                    last_seq = sh.seq  # foreign-key wake: absorb and re-arm
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return sh.seq
+                sh.cond.wait(remaining)
+
+    @staticmethod
+    def _touched(sh: _Shard, key: str, last_seq: int) -> bool:
+        """True if any touch after ``last_seq`` may have written ``key``
+        (named it, had unknown keys, or scrolled off the ring)."""
+        recent = sh.recent
+        if not recent or recent[0][0] > last_seq + 1:
+            return True  # ring can't prove the wakes were foreign
+        for seq, keys in recent:
+            if seq <= last_seq:
+                continue
+            if keys is None or key in keys:
+                return True
+        return False
+
+    # ---- reads ------------------------------------------------------------
+    def mget(
+        self, keys: List[str], default: Any = None, *, worker: str = "-"
+    ) -> List[Any]:
+        """Batched get (Redis MGET): values in ``keys`` order, ``default``
+        for missing entries.  Keys are grouped by shard and each shard's
+        group is served in one locked pass, charged as one amortized
+        round-trip per shard touched (request latency + summed transfer) —
+        not one per key."""
+        by_shard: Dict[int, List[int]] = {}
+        for i, key in enumerate(keys):
+            by_shard.setdefault(self.shard_of(key), []).append(i)
+        out: List[Any] = [default] * len(keys)
+        for sidx, positions in by_shard.items():
+            sh = self._shards[sidx]
+            with sh.lock:
+                nbytes = 0
+                for i in positions:
+                    value = sh.data.get(keys[i], default)
+                    out[i] = value
+                    nbytes += _sizeof(value)
+                # one amortized round-trip for the whole shard group
+                self._charge(
+                    sh, worker, "mget", f"[{len(positions)} keys@s{sidx}]",
+                    nbytes, write=False,
+                )
+        return out
+
+    def scan(self, prefix: str, *, worker: str = "-") -> List[str]:
+        """All keys starting with ``prefix`` (Redis SCAN MATCH): one charged
+        round-trip per shard — every shard must be visited, since hashing
+        scatters a prefix across all of them.  Used by stateless scheduler
+        handles to rebuild their lease-index caches from the KV (the KV is
+        the source of truth; local heaps are hints)."""
+        out: List[str] = []
+        for sh in self._shards:
+            with sh.lock:
+                found = [k for k in sh.data if k.startswith(prefix)]
+                self._charge(
+                    sh, worker, "scan", f"[{prefix}*@s{sh.idx}]",
+                    sum(len(k.encode()) for k in found), write=False,
+                )
+                out.extend(found)
+        return sorted(out)
+
+    # ---- server-side scripting (Redis EVAL analogue) ---------------------
+    def eval_many(
+        self,
+        updates: Dict[str, Callable[[Any], Any]],
+        *,
+        default: Any = None,
+        worker: str = "-",
+    ) -> Dict[str, Any]:
+        """Pipelined EVAL: apply ``updates[key]`` to each key atomically
+        under its shard lock, grouped by shard — one amortized round-trip
+        and **one** watcher wakeup per touched shard for the whole batch.
+        Each update still runs atomically per key (HOGWILD! range-update
+        semantics are unchanged); what's batched is the wire, not the
+        locking.  Returns the new value per key."""
+        by_shard: Dict[int, List[str]] = {}
+        for key in updates:
+            by_shard.setdefault(self.shard_of(key), []).append(key)
+        out: Dict[str, Any] = {}
+        for sidx, group in by_shard.items():
+            sh = self._shards[sidx]
+            with sh.lock:
+                nbytes = 0
+                for key in group:
+                    new = updates[key](sh.data.get(key, default))
+                    if new is DELETE:
+                        sh.data.pop(key, None)
+                        out[key] = None
+                        continue
+                    sh.data[key] = new
+                    out[key] = new
+                    nbytes += _sizeof(new)
+                self._charge(
+                    sh, worker, "meval", f"[{len(group)} keys@s{sidx}]",
+                    nbytes, write=True,
+                )
+                sh.touch(group)
+        return out
+
+    # ---- lists (queues) ---------------------------------------------------
+    def rpush(self, key: str, *values: Any, worker: str = "-") -> int:
+        sh = self._shard(key)
+        with sh.lock:
+            lst = sh.data.setdefault(key, [])
+            lst.extend(values)
+            self._charge(sh, worker, "rpush", key, sum(_sizeof(v) for v in values), write=True)
+            sh.touch((key,))
+            return len(lst)
+
+    def rpush_nowait(self, key: str, *values: Any, worker: str = "-") -> None:
+        """Advisory RPUSH: no return value and — on wire-backed stores — no
+        round trip (the append rides a fire-and-forget frame and may be
+        dropped by a reconnect window).  For telemetry-grade appends like
+        duration samples, where losing one entry is benign but paying a
+        blocking round trip per task is not.  In-process stores append
+        synchronously; only the *guarantee* is weakened, never the
+        ordering a single client observes."""
+        self.rpush(key, *values, worker=worker)
+
+    def rpush_many(
+        self, pushes: Dict[str, List[Any]], *, worker: str = "-"
+    ) -> Dict[str, int]:
+        """Pipelined RPUSH across keys: group by shard, extend every list in
+        one locked pass per shard, charge one amortized round-trip per shard
+        and bump each touched shard's sequence exactly once — N queue
+        appends wake each shard's blocked ``blpop``/``wait_key`` consumers
+        once.  Returns the new length per key."""
+        by_shard: Dict[int, List[str]] = {}
+        for key in pushes:
+            by_shard.setdefault(self.shard_of(key), []).append(key)
+        lengths: Dict[str, int] = {}
+        for sidx, group in by_shard.items():
+            sh = self._shards[sidx]
+            with sh.lock:
+                nbytes = 0
+                for key in group:
+                    values = pushes[key]
+                    lst = sh.data.setdefault(key, [])
+                    lst.extend(values)
+                    lengths[key] = len(lst)
+                    nbytes += sum(_sizeof(v) for v in values)
+                self._charge(
+                    sh, worker, "mrpush", f"[{len(group)} keys@s{sidx}]",
+                    nbytes, write=True,
+                )
+                sh.touch(group)
+        return lengths
+
+    def lpop_n(self, key: str, max_n: int, *, worker: str = "-") -> List[Any]:
+        """Pop up to ``max_n`` items off the left of ``key``'s list in ONE
+        locked pass / one charged round-trip (Redis ``LPOP key count``).
+        The queue-consumer mirror of ``rpush_many``: a worker leasing a
+        batch pays one request, not one per task."""
+        sh = self._shard(key)
+        with sh.lock:
+            lst = sh.data.get(key)
+            out = list(lst[:max_n]) if lst else []
+            if out:
+                del lst[: len(out)]
+            self._charge(
+                sh, worker, "lpopn", key,
+                sum(_sizeof(v) for v in out), write=True,
+            )
+            return out
+
+    def blpop(self, key: str, timeout_s: float, *, worker: str = "-") -> Any:
+        """Blocking left pop (Redis BLPOP): pop the head of ``key``'s list,
+        waiting on the shard's watch condition until an element arrives or
+        the timeout elapses (then ``None``).  No polling: a producer's
+        ``rpush`` on the same shard wakes this directly."""
+        deadline = time.monotonic() + timeout_s
+        sh = self._shard(key)
+        with sh.lock:
+            while True:
+                lst = sh.data.get(key)
+                if lst:
+                    value = lst.pop(0)
+                    self._charge(sh, worker, "blpop", key, _sizeof(value), write=True)
+                    return value
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                sh.cond.wait(remaining)
+
+    def lrange(self, key: str, start: int = 0, stop: int = -1, *, worker: str = "-") -> List[Any]:
+        sh = self._shard(key)
+        with sh.lock:
+            lst = list(sh.data.get(key, []))
+            out = lst[start:] if stop == -1 else lst[start : stop + 1]
+            self._charge(sh, worker, "lrange", key, sum(_sizeof(v) for v in out), write=False)
+            return out
+
+    def llen(self, key: str, *, worker: str = "-") -> int:
+        sh = self._shard(key)
+        with sh.lock:
+            self._charge(sh, worker, "llen", key, 8, write=False)
+            return len(sh.data.get(key, []))

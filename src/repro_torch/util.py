@@ -1,0 +1,47 @@
+"""Tree helpers for nested dict/list/tuple containers of leaves (the port's
+stand-in for `jax.tree_util` on parameter and cache trees)."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
+    """(leaves in a fixed order, structure); dict keys are taken sorted."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        leaves, subs = [], []
+        for k in keys:
+            ls, s = tree_flatten(tree[k])
+            leaves += ls
+            subs.append(s)
+        return leaves, ("dict", keys, subs)
+    if isinstance(tree, (list, tuple)):
+        leaves, subs = [], []
+        for x in tree:
+            ls, s = tree_flatten(x)
+            leaves += ls
+            subs.append(s)
+        return leaves, (type(tree).__name__, None, subs)
+    return [tree], None
+
+
+def tree_unflatten(struct: Any, leaves: List[Any]) -> Any:
+    it = iter(leaves)
+
+    def build(s):
+        if s is None:
+            return next(it)
+        kind, keys, subs = s
+        if kind == "dict":
+            return {k: build(sub) for k, sub in zip(keys, subs)}
+        items = [build(sub) for sub in subs]
+        return tuple(items) if kind == "tuple" else items
+
+    return build(struct)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    leaves, struct = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(struct, [fn(*xs) for xs in zip(leaves, *others)])

@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs an NVIDIA GPU (marked `cuda`; each test skips without one) and
+imports only torch and the port, so it runs where jax is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances, by the output's dtype: fp32 2e-5 (`tests/test_kernels.py`'s
+bar); bf16 one bf16 step at the largest value of the output row, and never
+more than `tests/test_kernels.py`'s 2e-2 (both sides are fp32 results
+rounded to bf16).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import decode_attention as dmod  # noqa: E402
+from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+
+BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
+
+
+def assert_matches_plain(out, exp):
+    assert out.dtype == exp.dtype and out.shape == exp.shape
+    fp32 = out.dtype == torch.float32
+    out, exp = out.float(), exp.float()
+    mag = exp.abs()
+    if fp32:
+        lim = 2e-5 + 2e-5 * mag
+    else:
+        lim = (BF16_ULP * mag.amax(-1, keepdim=True) + 1e-5).minimum(2e-2 + 2e-2 * mag)
+    ratio = ((out - exp).abs() / lim).max().item()
+    assert ratio <= 1.0, f"error {ratio:.3g}x its limit"
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, K, D, causal, window, cap, q_offset
+    (2, 128, 128, 4, 4, 64, True, None, None, 0),
+    (1, 256, 256, 8, 2, 64, True, None, None, 0),
+    (1, 128, 128, 4, 1, 128, True, None, None, 0),
+    (2, 128, 128, 4, 2, 32, True, 64, None, 0),
+    (1, 128, 128, 2, 2, 64, True, None, 50.0, 0),
+    (1, 128, 256, 4, 4, 64, True, None, None, 128),
+    (1, 128, 128, 2, 1, 64, False, None, None, 0),
+    (2, 77, 77, 4, 2, 32, True, None, None, 0),        # ragged Sq
+    (1, 33, 100, 8, 1, 128, True, 20, 30.0, 67),       # ragged, offset, window, cap
+]
+DECODE_CASES = [
+    # S, H, K, D, window, cap
+    (256, 8, 2, 64, None, None),
+    (512, 4, 4, 32, None, None),
+    (256, 8, 1, 128, 64, None),
+    (256, 4, 2, 64, None, 30.0),
+    (97, 4, 2, 32, None, None),
+    (300, 14, 2, 64, None, None),    # group 7
+    (300, 32, 2, 128, None, None),   # group 16
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dev, dtype):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, Sq, Sk, H, K, D, causal, window, cap, off = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (_t(rng, s, cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=off)
+    before = fmod.flash_attention.launches
+    out = fmod.flash_attention(q, k, v, **kw)
+    assert fmod.flash_attention.launches == before + 1
+    exp = fmod.flash_attention_plain(q, k, v, **kw)
+    assert_matches_plain(out, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,K,D,window,cap", DECODE_CASES)
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+])
+def test_decode_kernel_matches_plain(cuda, S, H, K, D, window, cap, q_dtype, kv_dtype):
+    rng = np.random.default_rng(S + H + D)
+    B = 4
+    q = _t(rng, (B, H, D), cuda, q_dtype)
+    kc, vc = _t(rng, (B, S, K, D), cuda, kv_dtype), _t(rng, (B, S, K, D), cuda, kv_dtype)
+    clen = torch.tensor([S, S // 2, 17, 1], dtype=torch.int32, device=cuda)
+    kw = dict(window=window, logit_cap=cap)
+    out = dmod.decode_attention(q, kc, vc, clen, **kw)
+    exp = dmod.decode_attention_plain(q, kc, vc, clen, **kw)
+    assert_matches_plain(out, exp)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_reads_strided_cache_slices(cuda):
+    """A per-layer view of a larger cache (as the engine holds it) is read
+    through its strides, not copied."""
+    rng = np.random.default_rng(0)
+    big = _t(rng, (3, 2, 64, 4, 32), cuda, torch.float32)  # (B, kv, S, K, D)
+    kc, vc = big[:, 0], big[:, 1]
+    q = _t(rng, (3, 8, 32), cuda, torch.float32)
+    clen = torch.tensor([64, 5, 33], dtype=torch.int32, device=cuda)
+    out = dmod.decode_attention(q, kc, vc, clen)
+    exp = dmod.decode_attention_plain(q, kc, vc, clen)
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((2, 6, 48), device=cuda)  # head_dim 48
+    kc = torch.zeros((2, 16, 2, 48), device=cuda)
+    with pytest.raises(ValueError):
+        dmod.decode_attention(q, kc, kc, torch.ones(2, dtype=torch.int32, device=cuda))
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fmod.flash_attention(q, q.bfloat16(), q.bfloat16())

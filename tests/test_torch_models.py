@@ -1,0 +1,184 @@
+"""The port's model layers and dense model against the JAX package's.
+
+Weights come from `repro.models.init_params` at PRNGKey(0), converted by
+`repro_torch.bridge`; inputs are made with numpy from a seed and fed to
+both frameworks.  Tolerances: fp32 1e-5 for single layers, 2e-3 for model
+logits and decode-vs-forward (`test_decode_matches_forward_exactly`'s bar).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import CONFIGS as JCONFIGS  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import cache_update as jcu  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.configs import CONFIGS as TCONFIGS  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import cache_update as tcu  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+
+torch.set_num_threads(1)
+
+LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
+MODEL_TOL = dict(atol=2e-3, rtol=1e-3)
+
+# (arch, n_kv_heads override): reduced() gives 4/4 heads (group 1); the
+# override makes group 2 so GQA grouping is held against JAX at model level
+MODEL_CASES = [
+    ("llama3-8b", None),
+    ("qwen3-32b", None),      # qk-norm
+    ("gemma2-27b", None),     # window, softcaps, sandwich norms, tied head
+    ("llama3-8b", 2),         # GQA group 2
+]
+_CACHE = {}
+
+
+def _cfgs(arch, kv=None):
+    jc, tc = JCONFIGS[arch].reduced(), TCONFIGS[arch].reduced()
+    if kv is not None:
+        jc, tc = dataclasses.replace(jc, n_kv_heads=kv), dataclasses.replace(tc, n_kv_heads=kv)
+    return jc, tc
+
+
+def _params(arch, kv=None):
+    if (arch, kv) not in _CACHE:
+        jc, tc = _cfgs(arch, kv)
+        jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
+        tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc)
+        _CACHE[(arch, kv)] = (jc, tc, jp, tp)
+    return _CACHE[(arch, kv)]
+
+
+def _rand(seed, shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _close(t, j, tol):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **tol)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rmsnorm():
+    x, w = _rand(0, (2, 5, 64)), _rand(1, (64,)) * 0.1
+    _close(tlayers.rmsnorm(torch.from_numpy(x), torch.from_numpy(w), eps=1e-6),
+           jlayers.rmsnorm(jnp.asarray(x), jnp.asarray(w), eps=1e-6), LAYER_TOL)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_apply_rope(per_row):
+    x = _rand(2, (3, 6, 4, 32))
+    pos = np.arange(6)[None] + (np.asarray([[0], [7], [130]]) if per_row else 0)
+    out = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 500000.0)
+    exp = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 500000.0)
+    _close(out, exp, LAYER_TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_apply(act):
+    x = _rand(3, (2, 5, 32))
+    p = {k: _rand(i + 4, s) * 0.2 for i, (k, s) in enumerate(
+        [("w_gate", (32, 48)), ("w_up", (32, 48)), ("w_down", (48, 32))])}
+    out = tlayers.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x), act)
+    exp = jlayers.mlp_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), act)
+    _close(out, exp, LAYER_TOL)
+
+
+@pytest.mark.parametrize("index", [5, np.asarray([0, 9, 3], np.int32)])
+def test_write_row(index):
+    cache, row = _rand(7, (3, 10, 2, 8)), _rand(8, (3, 1, 2, 8))
+    idx_t = torch.from_numpy(index) if isinstance(index, np.ndarray) else index
+    out = tcu.write_row(torch.from_numpy(cache.copy()), torch.from_numpy(row), idx_t)
+    exp = jcu.write_row(jnp.asarray(cache), jnp.asarray(row), jnp.asarray(index), dus_ok=False)
+    _close(out, exp, dict(atol=0, rtol=0))
+
+
+def test_insert_rows_and_write_segment():
+    big, small = _rand(9, (4, 2, 10, 8)), _rand(10, (2, 2, 10, 8))
+    slots = np.asarray([3, 1])
+    out = tcu.insert_rows(torch.from_numpy(big.copy()), torch.from_numpy(small),
+                          torch.from_numpy(slots), axis=0)
+    exp = jcu.insert_rows(jnp.asarray(big), jnp.asarray(small), jnp.asarray(slots), axis=0)
+    _close(out, exp, dict(atol=0, rtol=0))
+    cache, seg = _rand(11, (2, 10, 2, 8)), _rand(12, (2, 6, 2, 8))
+    out = tcu.write_segment(torch.from_numpy(cache.copy()), torch.from_numpy(seg), 0)
+    exp = jcu.write_segment(jnp.asarray(cache), jnp.asarray(seg), 0, dus_ok=False)
+    _close(out, exp, dict(atol=0, rtol=0))
+
+
+@pytest.mark.parametrize("mode", ["no_cache", "prefill", "decode"])
+def test_attn_apply(mode):
+    jc, tc, jp, tp = _params("qwen3-32b", 2)
+    jpa = jax.tree_util.tree_map(lambda a: a[0, 0], jp["decoder"]["attn"])
+    tpa = tp["decoder"][0]["attn"]
+    B, S, max_len = 3, (1 if mode == "decode" else 9), 16
+    x = _rand(13, (B, S, jc.d_model))
+    kw_j, kw_t = {}, {}
+    if mode != "no_cache":
+        kc = _rand(14, (B, max_len, jc.n_kv_heads, jc.hd))
+        vc = _rand(15, (B, max_len, jc.n_kv_heads, jc.hd))
+        kw_j["cache"] = {"k": jnp.asarray(kc), "v": jnp.asarray(vc)}
+        kw_t["cache"] = {"k": torch.from_numpy(kc.copy()), "v": torch.from_numpy(vc.copy())}
+        if mode == "prefill":
+            kw_j["cache_len"], kw_t["cache_len"] = jnp.int32(0), 0
+        else:
+            clen = np.asarray([0, 5, 11], np.int32)  # a dead slot, two live ones
+            kw_j["cache_len"], kw_t["cache_len"] = jnp.asarray(clen), torch.from_numpy(clen)
+            kw_j["positions"] = jnp.asarray(clen)[:, None]
+            kw_t["positions"] = torch.from_numpy(clen)[:, None]
+    out_j, cache_j = jattn.attn_apply(jpa, jnp.asarray(x), jc, **kw_j)
+    out_t, cache_t = tattn.attn_apply(tpa, torch.from_numpy(x), tc, **kw_t)
+    _close(out_t, out_j, LAYER_TOL)
+    if mode != "no_cache":
+        for k in ("k", "v"):
+            _close(cache_t[k], cache_j[k], LAYER_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the dense model
+# ---------------------------------------------------------------------------
+
+def _tokens(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch,kv", MODEL_CASES)
+def test_forward_logits_match_jax(arch, kv):
+    jc, tc, jp, tp = _params(arch, kv)
+    toks = _tokens(jc, 2, 24, 0)
+    exp, _, _ = jmodel.forward(jp, jc, {"tokens": jnp.asarray(toks)})
+    out = tmodel.forward(tp, tc, {"tokens": torch.from_numpy(toks).long()})
+    _close(out, exp, MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch,kv", MODEL_CASES)
+def test_decode_matches_forward_exactly(arch, kv):
+    """Torch twin of tests/test_models.py::test_decode_matches_forward_exactly."""
+    _, tc, _, tp = _params(arch, kv)
+    B, S_prompt, n_dec = 2, 12, 3
+    toks = torch.from_numpy(_tokens(tc, B, S_prompt + n_dec, 1)).long()
+    full = tmodel.forward(tp, tc, {"tokens": toks})
+    cache = tmodel.init_cache(tc, B, S_prompt + n_dec + 4, torch.float32, "cpu")
+    lg, cache, clen = tmodel.prefill(tp, tc, {"tokens": toks[:, :S_prompt]}, cache)
+    torch.testing.assert_close(lg[:, -1], full[:, S_prompt - 1], **MODEL_TOL)
+    for t in range(n_dec):
+        lg, cache = tmodel.decode_step(tp, tc, toks[:, S_prompt + t][:, None], cache, clen)
+        clen += 1
+        torch.testing.assert_close(lg[:, 0], full[:, S_prompt + t], **MODEL_TOL)
+
+
+def test_unported_family_names_its_slice():
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tmodel.init_params(TCONFIGS["olmoe-1b-7b"].reduced(), device="cpu")
