@@ -5,29 +5,40 @@ NVIDIA H100.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` and drives the port through four phases, each printing one JSON
-line; any failed check raises and the script exits non-zero:
+``nvcc`` (one process per source, all at once) and drives the port through
+its phases, each printing JSON lines; any failed check raises and the
+script exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``) and the kernel
    build time;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
-   (see `compare` for the tolerances), with its time, the plain version's,
-   the least time the card could take (``bound_ms``) and one PyTorch
-   library call's (``F.scaled_dot_product_attention``, a yardstick the port
-   never calls);
+   (see `compare` for the tolerances; the SSD's fp32 final state at the
+   JAX package's SSD bar), with its time, the plain version's, the least
+   time the card could take (``bound_ms``) and one PyTorch library call's
+   where one computes the same function (``F.scaled_dot_product_attention``,
+   a yardstick the port never calls; none for the SSD scan), at the serving
+   shapes of phases 3 and 3b first;
 3. serve: llama3-8b at full width (32 layers, random weights from a seed)
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
-   published exactly once, some admitted mid-batch, and both kernels'
-   launch counters > 0 during this phase;
+   published exactly once, some admitted mid-batch, and both attention
+   kernels' launch counters > 0 during this phase; then a profile of the
+   decode step;
+3b. serve: zamba2-1.2b (the Mamba2 hybrid) at full width (38 layers, the
+   shared attention block every 6) the same way; the ssd, flash and decode
+   counters all > 0 during this phase; then its decode-step profile;
 4. consistency: llama3-8b width at 2 layers in fp32 (TF32 off), prefill and
    4 decode steps on the card (kernels) against the same weights on the CPU
-   (plain versions): identical greedy tokens, logits within 2e-3.
+   (plain versions): identical greedy tokens, logits within 2e-3;
+4b. the same for zamba2 width at 7 layers (one super block and a tail
+   layer), two prompts of 200 tokens (a ragged second chunk), then
+   ``forward`` over the whole sequence on both devices.
 
 The line before the last lists every kernel (name, route, source, the TPU
-kernel it replaces, launches in phase 3, error and times at the serving
-shapes); the last line is the result object.  Without a GPU, or without
-the repository beside it, the script exits non-zero and prints no result.
+kernel it replaces, launches per serving phase, error and times at the
+serving shapes); the last line is the result object.  Without a GPU, or
+without the repository beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -45,6 +56,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 
 BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 DECODE_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/mamba2_ssd.cu"
+SSD_STATE_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:167
 SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
 
@@ -210,17 +223,77 @@ def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
     return row
 
 
-def phase_kernels(torch, dmod, fmod, dev):
+def ssd_case(torch, F, smod, flush, dev, name, B, S, H, G, dt, with_d=True,
+             return_state=True, chunk=128):
+    """x, B and C are views of one (B, S, conv_dim) buffer, as the Mamba2
+    layer hands them over (the conv output, row stride conv_dim)."""
+    g = torch.Generator(device=dev).manual_seed(B * S + H + G)
+    P = N = 64
+    d_in, gn = H * P, G * N
+    xbc = torch.randn((B, S, d_in + 2 * gn), generator=g, device=dev).to(getattr(torch, dt))
+    x = xbc[..., :d_in].reshape(B, S, H, P)
+    Bm = xbc[..., d_in:d_in + gn].reshape(B, S, G, N)
+    Cm = xbc[..., d_in + gn:].reshape(B, S, G, N)
+    dtv = F.softplus(torch.randn((B, S, H), generator=g, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    D = torch.randn((H,), generator=g, device=dev) if with_d else None
+    kw = dict(chunk=chunk, return_state=return_state)
+    out = smod.ssd(x, dtv, A, Bm, Cm, D, **kw)
+    exp = smod.ssd_plain(x, dtv, A, Bm, Cm, D, **kw)
+    torch.cuda.synchronize()
+    y, y_exp = (out[0], exp[0]) if return_state else (out, exp)
+    ok, err, ratio = compare(y, y_exp, dt == "float32")
+    state_err = state_ratio = None
+    if return_state:
+        serr = (out[1] - exp[1]).abs()
+        state_err = serr.max().item()
+        state_ratio = (serr / (SSD_STATE_TOL["atol"] + SSD_STATE_TOL["rtol"] * exp[1].abs())
+                       ).max().item()
+        ok = ok and state_ratio <= 1.0
+    # each input read once, each output written once; the work the data
+    # needs: the causal half of each chunk's (c x c) products, and the
+    # inter-chunk term only where the entering state is not the zero start
+    es = x.element_size()
+    nbytes = B * S * (d_in + 2 * gn) * es + B * S * H * 4 + 2 * H * 4 + B * S * d_in * es \
+        + (B * H * P * N * 4 if return_state else 0)
+    c = min(chunk, S)
+    flops = 0.0
+    for c0 in range(0, S, c):
+        nv = min(c, S - c0)
+        pairs = nv * (nv + 1) / 2
+        flops += 2 * (N + P) * pairs + 2 * nv * P * N * (2 if c0 else 1)
+    b_ms, b_by = bound(nbytes, flops * B * H, dt)
+    row = {
+        "phase": "kernel", "kernel": "ssd", "case": name,
+        "B": B, "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": chunk, "dtype": dt,
+        "D": with_d, "return_state": return_state,
+        "max_abs_err": err, "err_over_limit": ratio,
+        "state_max_abs_err": state_err, "state_err_over_limit": state_ratio, "ok": bool(ok),
+        "kernel_ms": time_ms(torch, lambda: smod.ssd(x, dtv, A, Bm, Cm, D, **kw), 20, flush),
+        "call_ms": call_ms(torch, lambda: smod.ssd(x, dtv, A, Bm, Cm, D, **kw)),
+        "plain_ms": time_ms(torch, lambda: smod.ssd_plain(x, dtv, A, Bm, Cm, D, **kw), 5, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+    }
+    emit(row)
+    check(ok, f"ssd {name}: y error {ratio:.3g}x its limit (max_abs_err {err}), "
+              f"state error {state_ratio}x its limit")
+    return row
+
+
+def phase_kernels(torch, dmod, fmod, smod, dev):
     import torch.nn.functional as F
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     S = 4096
     clen8 = [S, S // 2, 17, 1, 3000, 1024, S - 1, 512]
-    rows = {"decode_attention": [], "flash_attention": []}
+    rows = {"decode_attention": [], "flash_attention": [], "ssd": []}
     d = lambda *a, **k: rows["decode_attention"].append(  # noqa: E731
         decode_case(torch, F, dmod, flush, dev, *a, **k))
     f = lambda *a, **k: rows["flash_attention"].append(  # noqa: E731
         flash_case(torch, F, fmod, flush, dev, *a, **k))
+    m = lambda *a, **k: rows["ssd"].append(  # noqa: E731
+        ssd_case(torch, F, smod, flush, dev, *a, **k))
     # the serving shapes of phase 3 first: 4 slots x 1024 positions, llama3-8b
     # heads, bf16 q against the default fp32 cache; prefill groups of one
     # prompt (requests arrive apart), right-padded to a multiple of 16: the
@@ -228,6 +301,22 @@ def phase_kernels(torch, dmod, fmod, dev):
     d("serve", 4, 1024, 8, 4, 128, [332, 48, 305, 17], "bfloat16", "float32")
     f("serve-304", 1, 304, 304, 8, 4, 128, "bfloat16")
     f("serve-16", 1, 16, 16, 8, 4, 128, "bfloat16")
+    # the serving shapes of phase 3b: zamba2's shared block is MHA (group 1)
+    # at head_dim 64; its prefill groups have the exact prompt length; every
+    # Mamba layer's scan runs at H=64, P=N=64, G=2 (two full chunks + 44
+    # rows at the longest prompt, one partial chunk at the shortest)
+    d("zamba2-serve", 4, 1024, 32, 1, 64, [332, 48, 305, 17], "bfloat16", "float32")
+    f("zamba2-serve-300", 1, 300, 300, 32, 1, 64, "bfloat16")
+    f("zamba2-serve-16", 1, 16, 16, 32, 1, 64, "bfloat16")
+    m("serve-300", 1, 300, 64, 2, "bfloat16")
+    m("serve-16", 1, 16, 64, 2, "bfloat16")
+    m("forward-4x2048", 4, 2048, 64, 2, "bfloat16", return_state=False)
+    m("serve-300-f32", 1, 300, 64, 2, "float32")
+    m("serve-16-f32", 1, 16, 64, 2, "float32")
+    m("s128-bf16", 1, 128, 64, 2, "bfloat16")
+    m("s128-f32-noD", 1, 128, 64, 2, "float32", with_d=False)
+    m("g1-300-bf16", 1, 300, 64, 1, "bfloat16")
+    m("chunk64-300-bf16", 2, 300, 64, 2, "bfloat16", chunk=64)
     for G in (4, 8):
         d(f"g{G}-bf16", 8, S, 8, G, 128, clen8, "bfloat16", "bfloat16")
         d(f"g{G}-bf16q-f32cache", 8, S, 8, G, 128, clen8, "bfloat16", "float32")
@@ -249,8 +338,10 @@ def phase_kernels(torch, dmod, fmod, dev):
 # phase 3: llama3-8b at full width behind the continuous-batching engine
 # ---------------------------------------------------------------------------
 
-def phase_serve(torch, np, port, dev, card):
-    cfg = port["CONFIGS"]["llama3-8b"]
+def phase_serve(torch, np, port, dev, card, arch, kernels):
+    """Serve ``arch`` at full width; ``kernels`` names the wrappers of its
+    path, each of which must launch during this phase."""
+    cfg = port["CONFIGS"][arch]
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = port["init_params"](cfg, gen, dev)
@@ -276,9 +367,9 @@ def phase_serve(torch, np, port, dev, card):
             rp.submit(store, kv, r, p)
             time.sleep(SUBMIT_GAP_S)
 
-    dmod, fmod = port["dmod"], port["fmod"]
-    dmod.decode_attention.launches = 0
-    fmod.flash_attention.launches = 0
+    wrappers = port["wrappers"]
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     sender = threading.Thread(target=client, name="chip-smoke-client")
     sender.start()
@@ -287,10 +378,7 @@ def phase_serve(torch, np, port, dev, card):
     wall = time.perf_counter() - t0
     sender.join(timeout=60)
     check(not sender.is_alive(), "client thread did not finish")
-    launches = {
-        "decode_attention": dmod.decode_attention.launches,
-        "flash_attention": fmod.flash_attention.launches,
-    }
+    launches = {name: wrappers[name].launches for name in kernels}
 
     res = rp.get_results(store, ids, timeout_s=10)
     bodies = store.get_many([rp.req_key(r) for r in ids], missing="error")
@@ -317,7 +405,7 @@ def phase_serve(torch, np, port, dev, card):
               f"{r}: published {len(markers[r])} times")
     check(stats["mid_batch_admissions"] > 0, "no request was admitted mid-batch")
     for name, n in launches.items():
-        check(n > 0, f"{name} kernel never launched on the main path")
+        check(n > 0, f"{name} kernel never launched on the {arch} serving path")
     profile_decode(torch, np, eng, cfg, n_params)
     del eng, params
     torch.cuda.empty_cache()
@@ -350,7 +438,7 @@ def profile_decode(torch, np, eng, cfg, n_params, n_steps=8):
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n_steps
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     emit({
-        "phase": "serve_profile", "live_slots": 4, "steps": n_steps,
+        "phase": "serve_profile", "arch": cfg.name, "live_slots": 4, "steps": n_steps,
         "profiler_saw_device": bool(ev),
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
@@ -362,22 +450,27 @@ def profile_decode(torch, np, eng, cfg, n_params, n_steps=8):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the card against the CPU at full width, 2 layers, fp32
+# phase 4: the card against the CPU at full width, few layers, fp32
 # ---------------------------------------------------------------------------
 
-def phase_consistency(torch, port, dev):
+def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False):
+    """Prefill two prompts of ``lens`` tokens (right-padded to the longer),
+    then 4 greedy decode steps, on the card and on the CPU from the same
+    weights; with ``with_forward`` also ``forward`` over prompt + decoded
+    tokens (all rows one length)."""
     cfg = dataclasses.replace(
-        port["CONFIGS"]["llama3-8b"], n_layers=2, dtype="float32", param_dtype="float32"
+        port["CONFIGS"][arch], n_layers=n_layers, dtype="float32", param_dtype="float32"
     )
     gen = torch.Generator(device=dev).manual_seed(1)
     p_gpu = port["init_params"](cfg, gen, dev)
     p_cpu = port["tree_map"](lambda t: t.cpu(), p_gpu)
     prefill, decode_step, init_cache = port["prefill"], port["decode_step"], port["init_cache"]
-    lens = torch.tensor([48, 37])
-    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(2))
+    lens = torch.tensor(lens)
+    L = int(lens.max())
+    toks = torch.randint(0, cfg.vocab_size, (2, L), generator=torch.Generator().manual_seed(2))
     results = {}
     for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
-        cache = init_cache(cfg, 2, 64, torch.float32, d)
+        cache = init_cache(cfg, 2, L + 16, torch.float32, d)
         logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d)}, cache, all_logits=True)
         last = logits[torch.arange(2, device=d), (lens - 1).to(d)]
         steps, tok, clen = [last.cpu()], last.argmax(-1), lens.to(d).to(torch.int32)
@@ -388,19 +481,29 @@ def phase_consistency(torch, port, dev):
             tok = lg[:, 0].argmax(-1)
             steps.append(lg[:, 0].cpu())
             picked.append(tok.cpu())
-        results[name] = (torch.stack(steps), torch.stack(picked))
-    (lg_g, tk_g), (lg_c, tk_c) = results["cuda"], results["cpu"]
+        fwd = None
+        if with_forward:  # the fed tokens: the prompt and the first 4 picks
+            seq = torch.cat([toks, torch.stack(picked[:4], 1)], 1).to(d)
+            fwd = port["forward"](p, cfg, {"tokens": seq}).cpu()
+        results[name] = (torch.stack(steps), torch.stack(picked), fwd)
+    (lg_g, tk_g, fw_g), (lg_c, tk_c, fw_c) = results["cuda"], results["cpu"]
     err = (lg_g - lg_c).abs().max().item()
     same = bool(torch.equal(tk_g, tk_c))
     close = bool(torch.allclose(lg_g, lg_c, atol=2e-3, rtol=1e-3))
+    fwd_err = None
+    if with_forward:
+        fwd_err = (fw_g - fw_c).abs().max().item()
+        close = close and bool(torch.allclose(fw_g, fw_c, atol=2e-3, rtol=1e-3))
     emit({
-        "phase": "consistency", "arch": cfg.name, "n_layers": 2, "dtype": "float32",
-        "tf32": torch.backends.cuda.matmul.allow_tf32, "decode_steps": 4,
+        "phase": "consistency", "arch": cfg.name, "n_layers": n_layers, "dtype": "float32",
+        "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt_lens": lens.tolist(),
+        "decode_steps": 4,
         "greedy_tokens_cuda": tk_g.T.tolist(), "greedy_tokens_cpu": tk_c.T.tolist(),
-        "tokens_identical": same, "max_abs_logit_err": err, "tol": 2e-3, "ok": same and close,
+        "tokens_identical": same, "max_abs_logit_err": err,
+        "forward_max_abs_logit_err": fwd_err, "tol": 2e-3, "ok": same and close,
     })
-    check(same, "greedy tokens differ between cuda and cpu")
-    check(close, f"logits differ by {err} > 2e-3")
+    check(same, f"{arch}: greedy tokens differ between cuda and cpu")
+    check(close, f"{arch}: logits differ by {err} (forward {fwd_err}) > 2e-3")
 
 
 def main() -> int:
@@ -416,15 +519,18 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
-    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.kernels import mamba2_ssd as smod
+    from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
     from repro_torch.serve import ContinuousEngine, ServeConfig
     from repro_torch.serve import request_plane as rp
     from repro_torch.storage import KVStore, ObjectStore
     from repro_torch.util import tree_flatten, tree_map
 
     port = dict(
-        CONFIGS=CONFIGS, dmod=dmod, fmod=fmod, decode_step=decode_step, init_cache=init_cache,
+        CONFIGS=CONFIGS, decode_step=decode_step, forward=forward, init_cache=init_cache,
         init_params=init_params, prefill=prefill, ContinuousEngine=ContinuousEngine,
+        wrappers={"decode_attention": dmod.decode_attention,
+                  "flash_attention": fmod.flash_attention, "ssd": smod.ssd},
         ServeConfig=ServeConfig, rp=rp, KVStore=KVStore, ObjectStore=ObjectStore,
         tree_flatten=tree_flatten, tree_map=tree_map,
     )
@@ -451,25 +557,39 @@ def main() -> int:
         "build_s": build_s, "build_s_per_kernel": build,
     })
 
-    rows = phase_kernels(torch, dmod, fmod, dev)
-    launches = phase_serve(torch, np, port, dev, card)
-    phase_consistency(torch, port, dev)
+    rows = phase_kernels(torch, dmod, fmod, smod, dev)
+    launches = {
+        "llama3-8b": phase_serve(torch, np, port, dev, card, "llama3-8b",
+                                 ("decode_attention", "flash_attention")),
+        "zamba2-1.2b": phase_serve(torch, np, port, dev, card, "zamba2-1.2b",
+                                   ("decode_attention", "flash_attention", "ssd")),
+    }
+    phase_consistency(torch, port, dev, "llama3-8b", 2, [48, 37])
+    phase_consistency(torch, port, dev, "zamba2-1.2b", 7, [200, 200], with_forward=True)
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
         "flash_attention": ("src/repro/kernels/flash_attention.py:112", FLASH_SRC),
+        "ssd": ("src/repro/kernels/mamba2_ssd.py:96", SSD_SRC),
+    }
+    times = lambda r: {  # noqa: E731
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     }
     kernels = []
     for name, (rep, src) in replaces.items():
-        serve_row = rows[name][0]  # the phase-3 serving shape (flash: longest group)
-        kernels.append({
+        # the first row is the longest serving shape of the first phase that
+        # runs the kernel (attention: llama3-8b; ssd: zamba2's 300 tokens)
+        by_phase = {arch: n[name] for arch, n in launches.items() if name in n}
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
+            "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-            "ms": serve_row["kernel_ms"], "plain_ms": serve_row["plain_ms"],
-            "bound_ms": serve_row["bound_ms"], "bound_by": serve_row["bound_by"],
-            "library_ms": serve_row["library_ms"],
-        })
+            **times(rows[name][0]),
+        }
+        if name != "ssd":  # the attention kernels at zamba2's serving shape too
+            entry["zamba2"] = times(next(r for r in rows[name] if r["case"].startswith("zamba2")))
+        kernels.append(entry)
     print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -2,7 +2,10 @@
 
 The JAX package stacks a dense decoder's layer weights as (outer, period,
 ...) (`decoder_stage_init`); the port keeps a list of per-layer dicts, so
-the conversion unstacks layer ``o * period + i`` from ``leaf[o, i]``.
+the conversion unstacks layer ``o * period + i`` from ``leaf[o, i]``.  The
+hybrid stage stacks its Mamba layers as ``super`` (n_super, per, ...) and
+``tail`` (n_tail, ...), unstacked the same way; its ``shared`` attention
+block is one dict, converted once (every super block reuses it).
 Weight layouts are the same on both sides (`wq (D, H, hd)`, `wo (H, hd,
 D)`, `w_gate (D, F)`), so no leaf is transposed.
 
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import layer_period
+from repro_torch.models.model import PORTED
+from repro_torch.models.transformer import hybrid_shape, layer_period
 from repro_torch.util import tree_map
 
 
@@ -31,15 +35,26 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """Convert a dense model's JAX parameter tree (leaves as numpy arrays)."""
-    if cfg.family != "dense":
+    """Convert a dense or hybrid model's JAX parameter tree (leaves as numpy
+    arrays)."""
+    if cfg.family not in PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    period = layer_period(cfg)
-    outer = cfg.n_layers // period
     conv = lambda a: tensor_from_numpy(a, device)  # noqa: E731
     out = {k: tree_map(conv, v) for k, v in tree.items() if k != "decoder"}
+    dec = tree["decoder"]
+    if cfg.family == "hybrid":
+        per, n_super, n_tail = hybrid_shape(cfg)
+        out["decoder"] = {
+            "super": [[tree_map(lambda a, o=o, i=i: conv(a[o, i]), dec["super"])
+                       for i in range(per)] for o in range(n_super)],
+            "shared": tree_map(conv, dec["shared"]),
+            "tail": [tree_map(lambda a, i=i: conv(a[i]), dec["tail"]) for i in range(n_tail)],
+        }
+        return out
+    period = layer_period(cfg)
+    outer = cfg.n_layers // period
     out["decoder"] = [
-        tree_map(lambda a, o=o, i=i: conv(a[o, i]), tree["decoder"])
+        tree_map(lambda a, o=o, i=i: conv(a[o, i]), dec)
         for o in range(outer)
         for i in range(period)
     ]

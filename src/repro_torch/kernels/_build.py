@@ -29,7 +29,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-KERNELS = ("decode_attention", "flash_attention")
+KERNELS = ("decode_attention", "flash_attention", "mamba2_ssd")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

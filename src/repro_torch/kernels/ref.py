@@ -1,14 +1,17 @@
-"""Plain PyTorch versions of the attention kernels (the port of
-`repro.kernels.ref`, attention half).
+"""Plain PyTorch oracles (the port of `repro.kernels.ref`: attention and
+the Mamba2 SSD scan).
 
-They are the ground truth the CUDA kernels are held against on the card,
-and the path a wrapper takes for a tensor that lies on the CPU.  Written
-naively (full materialisation) for auditability.
+Written naively (full materialisation, or one step at a time) for
+auditability.  The attention references are the plain versions the CUDA
+attention kernels are held against on the card and the path their
+wrappers take for a CPU tensor; the SSD references are the oracles of the
+chunked plain scan in `mamba2_ssd.py`.
 
-All arithmetic is fp32 whatever the input dtypes; the output takes q's
-dtype, as the kernels' does.  Where every position of a row is masked the
-result is 0 (the kernels divide by ``max(l, 1e-30)``), not the NaN of a
-plain softmax; no caller produces such a row.
+All arithmetic is fp32 whatever the input dtypes; the output takes the
+input's dtype (q, x), as the kernels' does.  Where every position of an
+attention row is masked the result is 0 (the kernels divide by
+``max(l, 1e-30)``), not the NaN of a plain softmax; no caller produces
+such a row.
 """
 
 from __future__ import annotations
@@ -95,3 +98,94 @@ def decode_attention_reference(
         logits, valid[:, None, None, :], v_cache.float(), "bkgs,bskd->bkgd"
     )
     return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD (state-space dual) scan
+# ---------------------------------------------------------------------------
+
+def ssd_reference(
+    x: torch.Tensor,  # (B, S, H, P)   inputs per head
+    dt: torch.Tensor,  # (B, S, H)      softplus'd timestep
+    A: torch.Tensor,  # (H,)           negative decay rate
+    Bmat: torch.Tensor,  # (B, S, G, N)   G groups broadcast over H
+    Cmat: torch.Tensor,  # (B, S, G, N)
+    D: Optional[torch.Tensor] = None,  # (H,) skip
+    *,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    return_state: bool = False,
+):
+    """Sequential (exact) SSD recurrence, one step at a time:
+        h_t = exp(A dt_t) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t (+ D x_t)
+    with a per-head fp32 state (P, N)."""
+    Bz, S, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    rep = H // G
+    Bh = Bmat.float().repeat_interleave(rep, dim=2)  # (B,S,H,N)
+    Ch = Cmat.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(A.float()[None, None, :] * dtf)  # (B,S,H)
+    h = (init_state.float() if init_state is not None
+         else torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device))
+    ys = []
+    for t in range(S):
+        h = h * decay[:, t, :, None, None] + (
+            (dtf[:, t, :, None] * xf[:, t])[..., None] * Bh[:, t, :, None, :]
+        )
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1)  # (B,S,H,P)
+    if D is not None:
+        y = y + xf * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_chunked_reference(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bmat: torch.Tensor,
+    Cmat: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 64,
+    init_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Matmul-form chunked SSD over all chunks at once (the algorithm the
+    kernel implements): the within-chunk quadratic term, then the
+    cross-chunk state recurrence.  S must be a multiple of ``chunk``."""
+    Bz, S, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc = S // chunk
+    rep = H // G
+    xf = x.float().reshape(Bz, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bz, nc, chunk, H)
+    Bh = Bmat.float().repeat_interleave(rep, dim=2).reshape(Bz, nc, chunk, H, N)
+    Ch = Cmat.float().repeat_interleave(rep, dim=2).reshape(Bz, nc, chunk, H, N)
+
+    a_cum = torch.cumsum(A.float()[None, None, None, :] * dtf, dim=2)  # (B,nc,c,H)
+    a_total = a_cum[:, :, -1, :]  # (B,nc,H)
+    seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B,nc,t,s,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    scores = torch.einsum("bnthk,bnshk->bntsh", Ch, Bh) * L
+    y_intra = torch.einsum("bntsh,bnsh,bnshp->bnthp", scores, dtf, xf)
+
+    decay_to_end = torch.exp(a_total[:, :, None, :] - a_cum)  # (B,nc,c,H)
+    chunk_state = torch.einsum("bnch,bnch,bnchk,bnchp->bnhpk", decay_to_end, dtf, Bh, xf)
+    h = (init_state.float() if init_state is not None
+         else torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device))
+    h_in = []
+    for n in range(nc):  # state entering each chunk
+        h_in.append(h)
+        h = h * torch.exp(a_total[:, n])[:, :, None, None] + chunk_state[:, n]
+    h_in = torch.stack(h_in, dim=1)  # (B,nc,H,P,N)
+    y_inter = torch.einsum("bnch,bnchk,bnhpk->bnchp", torch.exp(a_cum), Ch, h_in)
+    y = (y_intra + y_inter).reshape(Bz, S, H, P)
+    if D is not None:
+        y = y + x.float() * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    return (y, h) if return_state else y

@@ -1,6 +1,7 @@
-"""Model zoo, PyTorch port: the dense GQA decoder family."""
+"""Model zoo, PyTorch port: the dense GQA decoder family and the zamba2
+hybrid (Mamba2 layers with a shared attention block)."""
 
-from . import attention, cache_update, layers, model, transformer
+from . import attention, cache_update, layers, mamba2, model, transformer
 from .model import (
     cache_batch_axes,
     decode_step,
@@ -15,6 +16,7 @@ __all__ = [
     "attention",
     "cache_update",
     "layers",
+    "mamba2",
     "model",
     "transformer",
     "cache_batch_axes",

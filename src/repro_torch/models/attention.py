@@ -23,13 +23,16 @@ from .cache_update import write_row, write_segment
 from .layers import Params, apply_rope, dense_init, rmsnorm, rmsnorm_init
 
 
-def attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
+def attn_init(gen, cfg: ModelConfig, *, q_in_dim: Optional[int] = None,
+              kv_in_dim: Optional[int] = None, dtype=torch.float32, device="cpu") -> Params:
+    """q/k/v project from ``q_in_dim``/``kv_in_dim`` (d_model by default;
+    the hybrid's shared block projects from 2 d_model)."""
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kw = dict(dtype=dtype, device=device)
     p: Params = {
-        "wq": dense_init(gen, D, H, hd, **kw),
-        "wk": dense_init(gen, D, K, hd, **kw),
-        "wv": dense_init(gen, D, K, hd, **kw),
+        "wq": dense_init(gen, q_in_dim or D, H, hd, **kw),
+        "wk": dense_init(gen, kv_in_dim or D, K, hd, **kw),
+        "wv": dense_init(gen, kv_in_dim or D, K, hd, **kw),
         "wo": dense_init(gen, H, hd, D, **kw),
     }
     if cfg.attn_bias:

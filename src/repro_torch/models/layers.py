@@ -10,7 +10,7 @@ distributions as the JAX initialisers (not the same numbers).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,3 +94,34 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None or cap <= 0:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def causal_conv1d(
+    x: torch.Tensor,  # (B, S, C)
+    kernel: torch.Tensor,  # (K, C) depthwise
+    bias: Optional[torch.Tensor] = None,
+    state: Optional[torch.Tensor] = None,  # (B, K-1, C) left context (decode)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv; returns (y, new_state).  The state may be kept
+    in another dtype (an fp32 cache under bf16 compute): it is cast to x's
+    dtype first, so the concat never promotes the activations, and the new
+    state comes back in x's dtype (the values a cache then stores)."""
+    K = kernel.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)  # (B, S+K-1, C)
+    S = x.shape[1]
+    y = sum(xp[:, i : i + S, :] * kernel[i][None, None, :] for i in range(K))
+    if bias is not None:
+        y = y + bias[None, None, :]
+    new_state = xp[:, -(K - 1) :, :] if K > 1 else torch.zeros_like(state)
+    return y, new_state
+
+
+def grouped_rmsnorm(x: torch.Tensor, w: torch.Tensor, n_groups: int, eps: float = 1e-6) -> torch.Tensor:
+    """Per-group RMS norm over the channel dim (the Mamba2 gated norm)."""
+    B, S, C = x.shape
+    xg = x.reshape(B, S, n_groups, C // n_groups).float()
+    var = (xg * xg).mean(dim=-1, keepdim=True)
+    xn = (xg * torch.rsqrt(var + eps)).reshape(B, S, C)
+    return (xn * (1.0 + w.float())).to(x.dtype)

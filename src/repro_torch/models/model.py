@@ -1,9 +1,11 @@
-"""Model facade for the dense family: init / forward / prefill / decode
-(port of `repro.models.model`).
+"""Model facade for the dense and hybrid families: init / forward /
+prefill / decode (port of `repro.models.model`).
 
 Parameters: {"embed": {"tok": (V, D)}, "final_norm": (D,), "lm_head": (D, V)
-unless tied, "decoder": [per-layer dict, ...]}.  Caches: {"decoder":
-[{"k", "v"} per layer]}, each (B, S, K, hd), updated in place.
+unless tied, "decoder": the stage}.  The dense stage is [per-layer dict,
+...] with caches {"decoder": [{"k", "v"} per layer]}, each (B, S, K, hd);
+the hybrid stage and its cache are described in `transformer`.  Caches are
+updated in place.
 
 Other families raise `NotImplementedError` naming the ROADMAP.md slice
 that brings them.
@@ -17,24 +19,26 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.util import tree_map
 
 from . import attention as attn
+from . import mamba2 as mb
 from . import transformer as tfm
 from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
 
 Batch = Dict[str, torch.Tensor]
 
+PORTED = ("dense", "hybrid")  # the families the port serves
 _LATER = {
-    "moe": "slice 3 (MLA + MoE)",
-    "hybrid": "slice 3 (Mamba2 hybrid)",
     "ssm": "slice 3 (xLSTM)",
-    "encdec": "slice 3 (whisper enc-dec)",
-    "vlm": "slice 3 (VLM prefix)",
+    "moe": "slice 4 (MLA + MoE)",
+    "encdec": "slice 4 (whisper enc-dec)",
+    "vlm": "slice 4 (VLM prefix)",
 }
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: see ROADMAP.md, {later}"
@@ -60,7 +64,10 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(generator, cfg.d_model, cfg.vocab_size, **kw)
-    p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers, **kw)
+    if cfg.family == "hybrid":
+        p["decoder"] = tfm.hybrid_stage_init(generator, cfg, **kw)
+    else:
+        p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers, **kw)
     return p
 
 
@@ -82,13 +89,18 @@ def _lm_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return softcap(logits, cfg.final_softcap)
 
 
+def _stage_apply(p: Params, cfg: ModelConfig, h: torch.Tensor, **kw):
+    stage = tfm.hybrid_stage_apply if cfg.family == "hybrid" else tfm.decoder_stage_apply
+    return stage(p["decoder"], h, cfg, **kw)
+
+
 def forward(p: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V) fp32."""
     _check_family(cfg)
     tokens = batch["tokens"]
     h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, _ = tfm.decoder_stage_apply(p["decoder"], h, cfg, positions=positions)
+    h, _ = _stage_apply(p, cfg, h, positions=positions)
     return _lm_logits(p, cfg, h)
 
 
@@ -99,21 +111,27 @@ def init_cache(
     cache_dtype=torch.bfloat16,
     device: Union[str, torch.device, None] = None,
 ) -> Dict[str, Any]:
+    """Dense: a KV cache per layer.  Hybrid: a KV cache per super block
+    (the shared block attends once per super block) in ``cache_dtype``, and
+    per Mamba layer a conv state and an ssm state, both fp32."""
     _check_family(cfg)
     dev = resolve_device(device)
-    return {
-        "decoder": [
-            attn.init_kv_cache(cfg, batch_size, max_len, cache_dtype, dev)
-            for _ in range(cfg.n_layers)
-        ]
-    }
+    kv = lambda: attn.init_kv_cache(cfg, batch_size, max_len, cache_dtype, dev)  # noqa: E731
+    if cfg.family == "hybrid":
+        per, n_super, n_tail = tfm.hybrid_shape(cfg)
+        ms = lambda: mb.init_mamba_state(cfg, batch_size, device=dev)  # noqa: E731
+        return {"decoder": {
+            "super": [{"mamba": [ms() for _ in range(per)], "attn": kv()} for _ in range(n_super)],
+            "tail": [ms() for _ in range(n_tail)],
+        }}
+    return {"decoder": [kv() for _ in range(cfg.n_layers)]}
 
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Tree of ints: the batch axis of each cache leaf (all 0: layers are a
-    list, not a stacked leading axis).  Feeds `cache_update.insert_rows`."""
+    """Tree of ints: the batch axis of each cache leaf (all 0: layers are
+    lists, not a stacked leading axis).  Feeds `cache_update.insert_rows`."""
     _check_family(cfg)
-    return {"decoder": [{"k": 0, "v": 0} for _ in range(cfg.n_layers)]}
+    return tree_map(lambda t: 0, init_cache(cfg, 1, 1, torch.float32, "meta"))
 
 
 def prefill(
@@ -133,9 +151,7 @@ def prefill(
     tokens = batch["tokens"]
     h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, cache = tfm.decoder_stage_apply(
-        p["decoder"], h, cfg, positions=positions, cache=cache["decoder"], cache_len=0
-    )
+    h, cache = _stage_apply(p, cfg, h, positions=positions, cache=cache["decoder"], cache_len=0)
     logits = _lm_logits(p, cfg, h if all_logits else h[:, -1:])
     return logits, {"decoder": cache}, tokens.shape[1]
 
@@ -161,8 +177,8 @@ def decode_step(
     else:
         cache_len = int(cache_len)
         positions = torch.tensor([cache_len], device=dev)
-    h, layers = tfm.decoder_stage_apply(
-        p["decoder"], h, cfg, positions=positions, cache=cache["decoder"], cache_len=cache_len,
+    h, layers = _stage_apply(
+        p, cfg, h, positions=positions, cache=cache["decoder"], cache_len=cache_len,
         attend_len=attn.decode_lengths(cache_len, tokens.shape[0], dev),
     )
     return _lm_logits(p, cfg, h), {"decoder": layers}

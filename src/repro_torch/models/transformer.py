@@ -1,11 +1,14 @@
-"""Dense decoder stage (port of the dense half of
-`repro.models.transformer`).
+"""Decoder stages: dense and the zamba2 hybrid (port of the dense and
+hybrid parts of `repro.models.transformer`).
 
 The JAX package stacks layer parameters as (outer, period, ...) and scans
 over them; eagerly, the port keeps a plain list of per-layer dicts in
 layer order (layer ``o * period + i``) and loops.  The local/global window
-period (gemma2: [local, global]) and sandwich norms carry over.  MoE, MLA,
-Mamba2, xLSTM and enc-dec stages come with later slices.
+period (gemma2: [local, global]) and sandwich norms carry over.  The hybrid
+stage is {"super": [[Mamba2 layer] * shared_attn_every] * n_super, "shared":
+one attention block reused after every super block, "tail": [Mamba2
+layer] * n_tail}.  MoE, MLA, xLSTM and enc-dec stages come with later
+slices.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
-from .layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from . import mamba2 as mb
+from .layers import Params, _normal, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 
 def layer_period(cfg: ModelConfig) -> int:
@@ -93,4 +97,89 @@ def decoder_stage_apply(
             cache=None if cache is None else cache[i], cache_len=cache_len,
             attend_len=attend_len,
         )
+    return h, cache
+
+
+# ---------------------------------------------------------------------------
+# hybrid stage (zamba2): Mamba2 super blocks + one shared attention block
+# ---------------------------------------------------------------------------
+
+def shared_attn_block_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
+    D, F = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ln": rmsnorm_init(2 * D, **kw),
+        "attn": attn.attn_init(gen, cfg, q_in_dim=2 * D, kv_in_dim=2 * D, **kw),
+        "ln2": rmsnorm_init(2 * D, **kw),
+        "mlp": {
+            "w_gate": _normal((2 * D, F), (2 * D) ** -0.5, gen, dtype, device),
+            "w_up": _normal((2 * D, F), (2 * D) ** -0.5, gen, dtype, device),
+            "w_down": _normal((F, D), F**-0.5, gen, dtype, device),
+        },
+    }
+
+
+def shared_attn_block_apply(
+    p: Params,
+    h: torch.Tensor,
+    h0: torch.Tensor,  # the stage's input embeddings (zamba's concat)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_len=None,
+    attend_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention and MLP over [h | h0], both normed from the same concat."""
+    xcat = torch.cat([h, h0], dim=-1)  # (B, S, 2D)
+    a, _ = attn.attn_apply(
+        p["attn"], rmsnorm(xcat, p["ln"], eps=cfg.rms_eps), cfg, positions=positions,
+        cache=cache, cache_len=cache_len, attend_len=attend_len,
+    )
+    h = h + a
+    return h + mlp_apply(p["mlp"], rmsnorm(xcat, p["ln2"], eps=cfg.rms_eps), cfg.act)
+
+
+def hybrid_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(Mamba layers per super block, super blocks, tail layers)."""
+    per = cfg.shared_attn_every
+    n_super = cfg.n_layers // per
+    return per, n_super, cfg.n_layers - n_super * per
+
+
+def hybrid_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
+    per, n_super, n_tail = hybrid_shape(cfg)
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "super": [[mb.mamba2_init(gen, cfg, **kw) for _ in range(per)] for _ in range(n_super)],
+        "shared": shared_attn_block_init(gen, cfg, **kw),
+        "tail": [mb.mamba2_init(gen, cfg, **kw) for _ in range(n_tail)],
+    }
+
+
+def hybrid_stage_apply(
+    params: Params,
+    h: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Dict] = None,
+    cache_len=None,
+    attend_len: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Cache: {"super": [{"mamba": [state] * per, "attn": kv}] * n_super,
+    "tail": [state] * n_tail}, updated in place."""
+    h0 = h
+    for o, block in enumerate(params["super"]):
+        c = None if cache is None else cache["super"][o]
+        for i, lp in enumerate(block):
+            out, _ = mb.mamba2_apply(lp, h, cfg, state=None if c is None else c["mamba"][i])
+            h = h + out
+        h = shared_attn_block_apply(
+            params["shared"], h, h0, cfg, positions=positions,
+            cache=None if c is None else c["attn"], cache_len=cache_len, attend_len=attend_len,
+        )
+    for i, lp in enumerate(params["tail"]):
+        out, _ = mb.mamba2_apply(lp, h, cfg, state=None if cache is None else cache["tail"][i])
+        h = h + out
     return h, cache

@@ -6,7 +6,8 @@ iteration runs a single one-token decode step over all slots -- live or
 not -- with a per-slot `cache_len` vector (the decode kernel masks each
 row at its own length).  Finished rows are evicted immediately; freed
 slots are refilled at chunk boundaries by an interleaved prefill
-microbatch: new prompts, right-padded to a bucket, prefill into a fresh
+microbatch: new prompts, right-padded to a bucket (grouped by exact
+length for the recurrent hybrid family), prefill into a fresh
 small cache whose rows replace the slots' rows of the persistent one
 (`cache_update.insert_rows`: a new occupant never reads its predecessor's
 KV).  The running batch never drains.
@@ -28,6 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache_batch_axes, decode_step, init_cache, prefill
+from repro_torch.models.model import PORTED
 from repro_torch.models.cache_update import insert_rows
 from repro_torch.util import tree_flatten
 
@@ -51,7 +53,7 @@ class ContinuousEngine:
     """Slot-based continuous-batching engine over one persistent cache."""
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig, *, device=None) -> None:
-        if cfg.family != "dense":
+        if cfg.family not in PORTED:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (see ROADMAP.md)"
             )
@@ -61,6 +63,10 @@ class ContinuousEngine:
         self.device = resolve_device(device)
         self._dtype = CACHE_DTYPES[scfg.cache_dtype]
         self._axes = tree_flatten(cache_batch_axes(cfg))[0]
+        # recurrent-state families carry prompt state, not a masked KV
+        # buffer: right-pad tokens would corrupt the state, so prefill
+        # microbatches group by *exact* prompt length instead of buckets
+        self._exact_len = cfg.family in ("ssm", "hybrid")
 
         B = scfg.max_batch
         self.cache = init_cache(cfg, B, scfg.max_len, self._dtype, self.device)
@@ -102,6 +108,8 @@ class ContinuousEngine:
     # ---- admission: interleaved prefill microbatch -----------------------
 
     def _pad_len(self, plen: int) -> int:
+        if self._exact_len:
+            return plen
         b = max(1, self.scfg.prefill_bucket)
         return min(-(-plen // b) * b, self.scfg.max_len - 1)
 

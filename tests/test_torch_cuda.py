@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (attention, Mamba2 SSD) against their plain
+PyTorch versions, on the card.
 
 Needs an NVIDIA GPU (marked `cuda`; each test skips without one) and
 imports only torch and the port, so it runs where jax is not installed:
@@ -8,7 +9,8 @@ imports only torch and the port, so it runs where jax is not installed:
 Tolerances, by the output's dtype: fp32 2e-5 (`tests/test_kernels.py`'s
 bar); bf16 one bf16 step at the largest value of the output row, and never
 more than `tests/test_kernels.py`'s 2e-2 (both sides are fp32 results
-rounded to bf16).
+rounded to bf16).  The SSD's fp32 final state: atol 5e-4 + rtol 1e-3
+(`tests/test_kernels.py`'s SSD bar).
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
 
 BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 
@@ -45,6 +48,8 @@ FLASH_CASES = [
     (1, 128, 128, 2, 1, 64, False, None, None, 0),
     (2, 77, 77, 4, 2, 32, True, None, None, 0),        # ragged Sq
     (1, 33, 100, 8, 1, 128, True, 20, 30.0, 67),       # ragged, offset, window, cap
+    (1, 300, 300, 32, 32, 64, True, None, None, 0),    # zamba2 shared block prefill
+    (1, 16, 16, 32, 32, 64, True, None, None, 0),
 ]
 DECODE_CASES = [
     # S, H, K, D, window, cap
@@ -55,6 +60,7 @@ DECODE_CASES = [
     (97, 4, 2, 32, None, None),
     (300, 14, 2, 64, None, None),    # group 7
     (300, 32, 2, 128, None, None),   # group 16
+    (1024, 32, 32, 64, None, None),  # zamba2 shared block decode: MHA, D=64
 ]
 
 
@@ -125,3 +131,69 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda)
     with pytest.raises(TypeError):
         fmod.flash_attention(q, q.bfloat16(), q.bfloat16())
+
+
+def _ssd_inputs(rng, B, S, H, G, dev, dtype, with_d=True):
+    P = N = 64
+    x, Bm, Cm = (_t(rng, s, dev, dtype) for s in ((B, S, H, P), (B, S, G, N), (B, S, G, N)))
+    dt = torch.nn.functional.softplus(_t(rng, (B, S, H), dev, torch.float32))
+    A = -torch.exp(_t(rng, (H,), dev, torch.float32))
+    D = _t(rng, (H,), dev, torch.float32) if with_d else None
+    return x, dt, A, Bm, Cm, D
+
+
+def _check_ssd(out, exp, return_state):
+    if return_state:
+        assert_matches_plain(out[0], exp[0])
+        torch.testing.assert_close(out[1], exp[1], atol=5e-4, rtol=1e-3)
+    else:
+        assert_matches_plain(out, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 77, 128, 300])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_d,return_state", [(True, True), (False, False)])
+def test_ssd_kernel_matches_plain(cuda, S, G, dtype, with_d, return_state):
+    rng = np.random.default_rng(S + G)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 2, S, 8, G, cuda, dtype, with_d)
+    before = smod.ssd.launches
+    out = smod.ssd(x, dt, A, Bm, Cm, D, chunk=128, return_state=return_state)
+    assert smod.ssd.launches == before + 1
+    exp = smod.ssd_plain(x, dt, A, Bm, Cm, D, chunk=128, return_state=return_state)
+    _check_ssd(out, exp, return_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_conv_output_views(cuda, dtype):
+    """x, B and C as the Mamba2 layer hands them over: views of one
+    (B, S, conv_dim) conv output, read through their strides; chunk 32."""
+    rng = np.random.default_rng(1)
+    Bz, S, H, G = 2, 101, 8, 2
+    d_in, gn = H * 64, G * 64
+    xbc = _t(rng, (Bz, S, d_in + 2 * gn), cuda, dtype)
+    x = xbc[..., :d_in].reshape(Bz, S, H, 64)
+    Bm = xbc[..., d_in:d_in + gn].reshape(Bz, S, G, 64)
+    Cm = xbc[..., d_in + gn:].reshape(Bz, S, G, 64)
+    _, dt, A, _, _, D = _ssd_inputs(rng, Bz, S, H, G, cuda, dtype)
+    out = smod.ssd(x, dt, A, Bm, Cm, D, chunk=32, return_state=True)
+    exp = smod.ssd_plain(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(), D,
+                         chunk=32, return_state=True)
+    _check_ssd(out, exp, True)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(2)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 1, 16, 4, 2, cuda, torch.float32)
+    with pytest.raises(ValueError):  # head_dim 32
+        smod.ssd(x[..., :32].contiguous(), dt, A, Bm, Cm, D)
+    with pytest.raises(TypeError):  # bf16 dt
+        smod.ssd(x, dt.bfloat16(), A, Bm, Cm, D)
+    with pytest.raises(TypeError):  # mixed x / B types
+        smod.ssd(x, dt, A, Bm.bfloat16(), Cm, D)
+    with pytest.raises(ValueError):  # a chunk larger than the kernel's tile
+        smod.ssd(torch.cat([x] * 16, 1), torch.cat([dt] * 16, 1), A,
+                 torch.cat([Bm] * 16, 1), torch.cat([Cm] * 16, 1), D, chunk=256)

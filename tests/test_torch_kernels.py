@@ -1,8 +1,10 @@
-"""The port's attention kernels against the JAX package's.
+"""The port's kernels (attention, Mamba2 SSD) against the JAX package's.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against `repro.kernels.ref` (and the Pallas kernels in interpret mode)
-on the same numpy inputs, at fp32 2e-5 (`tests/test_kernels.py`'s bar).
+on the same numpy inputs, at `tests/test_kernels.py`'s bars: attention fp32
+2e-5; SSD atol 5e-4 + rtol 1e-3 (the same scan in another summation
+order), decode steps 1e-4 + 1e-3.
 The CUDA kernels themselves are compared with the plain versions by
 `tests/test_torch_cuda.py` (marked `cuda`, skipped without a GPU) and by
 `chip_smoke.py`.
@@ -16,9 +18,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention_pallas  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.mamba2_ssd import ssd_pallas  # noqa: E402
 from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 torch.set_num_threads(1)
@@ -156,3 +161,121 @@ def test_split_plan_covers_the_cache():
     for B, K, S in [(4, 8, 1024), (8, 8, 4096), (1, 1, 5), (3, 2, 97), (128, 8, 256)]:
         splits, chunk = dmod.split_plan(B, K, S)
         assert chunk % 32 == 0 and splits * chunk >= S > (splits - 1) * chunk
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:167
+STEP_TOL = dict(atol=1e-4, rtol=1e-3)  # tests/test_kernels.py:199
+# the ssd_pallas cases of tests/test_kernels.py:151-155
+SSD_CASES = [
+    # S, H, P, G, N, chunk
+    (128, 4, 16, 2, 8, 32),
+    (256, 2, 32, 1, 16, 64),
+    (192, 8, 8, 4, 4, 64),
+]
+
+
+def _ssd_inputs(B, S, H, P, G, N, seed):
+    """x, dt (softplus'd), A (negative), B, C, D as numpy fp32."""
+    rng = np.random.default_rng(seed)
+    x = _np(rng, (B, S, H, P))
+    dt = np.log1p(np.exp(_np(rng, (B, S, H))))
+    A = -np.exp(_np(rng, (H,)))
+    Bm, Cm, D = _np(rng, (B, S, G, N)), _np(rng, (B, S, G, N)), _np(rng, (H,))
+    return x, dt, A, Bm, Cm, D
+
+
+def _j(arrs):
+    return [None if a is None else jnp.asarray(a) for a in arrs]
+
+
+def _t(arrs):
+    return [None if a is None else T(a) for a in arrs]
+
+
+@pytest.mark.parametrize("oracle", ["sequential", "pallas_interpret"])
+@pytest.mark.parametrize("S,H,P,G,N,chunk", SSD_CASES)
+def test_ssd_plain_matches_jax(S, H, P, G, N, chunk, oracle):
+    inp = _ssd_inputs(2, S, H, P, G, N, S)
+    out = smod.ssd(*_t(inp), chunk=chunk)
+    if oracle == "sequential":
+        exp = jref.ssd_reference(*_j(inp))
+    else:
+        exp = ssd_pallas(*_j(inp), chunk=chunk, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), **SSD_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("S", [60, 100, 128])
+def test_ssd_pad_path_matches_sequential(B, S):
+    """The twin of tests/test_kernels.py::test_ssd_jnp_chunked_pad_path (which
+    skips without hypothesis): S not a chunk multiple pads with dt = 0."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, 2, 8, 1, 4, B * S)
+    out = ops.ssd_scan(*_t([x, dt, A, Bm, Cm]), None, chunk=32)
+    exp = jref.ssd_reference(*_j([x, dt, A, Bm, Cm]), None)
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), **SSD_TOL)
+
+
+@pytest.mark.parametrize("S,chunk,with_d", [(100, 32, True), (64, 32, False), (24, 128, True)])
+def test_ssd_return_state_matches_jax_ops(S, chunk, with_d):
+    """y and the fp32 final state against ops.ssd_scan(return_state=True),
+    the call Mamba2 prefill makes (chunk larger than S shrinks to S)."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(2, S, 4, 8, 2, 4, S + chunk)
+    D = D if with_d else None
+    y, h = ops.ssd_scan(*_t([x, dt, A, Bm, Cm, D]), chunk=chunk, return_state=True)
+    ey, eh = jops.ssd_scan(*_j([x, dt, A, Bm, Cm, D]), chunk=chunk, return_state=True)
+    assert h.dtype == torch.float32 and h.shape == (2, 4, 8, 4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ey), **SSD_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(eh), **SSD_TOL)
+
+
+def test_ssd_references_match_jax():
+    """The port's own oracles (sequential with init_state, chunked) against
+    the JAX package's."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(2, 64, 4, 8, 2, 4, 3)
+    h0 = _np(np.random.default_rng(4), (2, 4, 8, 4))
+    for fn_t, fn_j, kw in ((ref.ssd_reference, jref.ssd_reference, {}),
+                           (ref.ssd_chunked_reference, jref.ssd_chunked_reference, {"chunk": 16})):
+        y, h = fn_t(*_t([x, dt, A, Bm, Cm, D]), init_state=T(h0), return_state=True, **kw)
+        ey, eh = fn_j(*_j([x, dt, A, Bm, Cm, D]), init_state=jnp.asarray(h0),
+                      return_state=True, **kw)
+        np.testing.assert_allclose(y.numpy(), np.asarray(ey), **SSD_TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(eh), **SSD_TOL)
+
+
+def test_ssd_decode_step_matches_jax():
+    x, dt, A, Bm, Cm, D = _ssd_inputs(2, 1, 4, 8, 2, 4, 5)
+    h0 = _np(np.random.default_rng(6), (2, 4, 8, 4))
+    h, y = ops.ssd_decode_step(T(h0), *_t([x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], D]))
+    eh, ey = jops.ssd_decode_step(jnp.asarray(h0), *_j([x[:, 0], dt[:, 0], A, Bm[:, 0],
+                                                        Cm[:, 0], D]))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ey), **STEP_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(eh), **STEP_TOL)
+
+
+def test_ssd_prefill_state_continues_decode():
+    """The twin of tests/test_kernels.py::test_ssd_prefill_state_continues_decode:
+    the state returned by the scan continues one decode step at a time."""
+    S = 64
+    x, dt, A, Bm, Cm, _ = _t(_ssd_inputs(1, S + 8, 2, 8, 1, 4, 9))
+    full = ref.ssd_reference(x, dt, A, Bm, Cm)
+    _, state = ops.ssd_scan(x[:, :S], dt[:, :S], A, Bm[:, :S], Cm[:, :S], chunk=32,
+                            return_state=True)
+    outs = []
+    for t in range(S, S + 8):
+        state, y = ops.ssd_decode_step(state, x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t])
+        outs.append(y)
+    torch.testing.assert_close(torch.stack(outs, 1), full[:, S:], **STEP_TOL)
+
+
+def test_ssd_dispatch_cpu_tensors_to_plain_version():
+    smod.ssd.launches = 0
+    inp = _t(_ssd_inputs(1, 40, 4, 8, 2, 4, 11))
+    y, h = ops.ssd_scan(*inp, chunk=16, return_state=True)
+    ey, eh = smod.ssd_plain(*inp, chunk=16, return_state=True)
+    torch.testing.assert_close(y, ey, rtol=0, atol=0)
+    torch.testing.assert_close(h, eh, rtol=0, atol=0)
+    assert smod.ssd.launches == 0

@@ -1,4 +1,5 @@
-"""The port's model layers and dense model against the JAX package's.
+"""The port's model layers and models (dense, zamba2 hybrid) against the
+JAX package's.
 
 Weights come from `repro.models.init_params` at PRNGKey(0), converted by
 `repro_torch.bridge`; inputs are made with numpy from a seed and fed to
@@ -19,12 +20,14 @@ from repro.configs import CONFIGS as JCONFIGS  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import cache_update as jcu  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro.models import mamba2 as jmamba  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import CONFIGS as TCONFIGS  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import cache_update as tcu  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import mamba2 as tmamba  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 torch.set_num_threads(1)
@@ -39,14 +42,19 @@ MODEL_CASES = [
     ("qwen3-32b", None),      # qk-norm
     ("gemma2-27b", None),     # window, softcaps, sandwich norms, tied head
     ("llama3-8b", 2),         # GQA group 2
+    ("zamba2-1.2b", None),    # hybrid: 4 layers, shared_attn_every=2
+    ("zamba2-1.2b", 5),       # hybrid with a tail layer
 ]
 _CACHE = {}
 
 
 def _cfgs(arch, kv=None):
+    """Reduced configs; ``kv`` overrides n_kv_heads, except for the hybrid
+    where it overrides n_layers (5: two super blocks of 2 and a tail)."""
     jc, tc = JCONFIGS[arch].reduced(), TCONFIGS[arch].reduced()
     if kv is not None:
-        jc, tc = dataclasses.replace(jc, n_kv_heads=kv), dataclasses.replace(tc, n_kv_heads=kv)
+        field = "n_layers" if jc.family == "hybrid" else "n_kv_heads"
+        jc, tc = dataclasses.replace(jc, **{field: kv}), dataclasses.replace(tc, **{field: kv})
     return jc, tc
 
 
@@ -146,8 +154,60 @@ def test_attn_apply(mode):
             _close(cache_t[k], cache_j[k], LAYER_TOL)
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv1d(with_state):
+    x, k, b = _rand(16, (2, 7, 12)), _rand(17, (4, 12)), _rand(18, (12,))
+    st = _rand(19, (2, 3, 12)) if with_state else None
+    y, ns = tlayers.causal_conv1d(torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(b),
+                                  None if st is None else torch.from_numpy(st))
+    ey, ens = jlayers.causal_conv1d(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
+                                    None if st is None else jnp.asarray(st))
+    _close(y, ey, LAYER_TOL)
+    _close(ns, ens, LAYER_TOL)
+
+
+def test_causal_conv1d_casts_the_state_to_the_activations_dtype():
+    """An fp32 cache state under bf16 compute: no promotion, and the new
+    state carries the bf16-rounded values (what the cache then stores)."""
+    x = torch.from_numpy(_rand(20, (1, 2, 8))).bfloat16()
+    st = torch.from_numpy(_rand(21, (1, 3, 8))) / 3
+    y, ns = tlayers.causal_conv1d(x, torch.ones((4, 8), dtype=torch.bfloat16), None, st)
+    assert y.dtype == ns.dtype == torch.bfloat16
+    torch.testing.assert_close(ns[:, :1].float(), st[:, 2:].bfloat16().float(), rtol=0, atol=0)
+
+
+def test_grouped_rmsnorm():
+    x, w = _rand(22, (2, 5, 64)), _rand(23, (64,)) * 0.1
+    _close(tlayers.grouped_rmsnorm(torch.from_numpy(x), torch.from_numpy(w), 4, eps=1e-5),
+           jlayers.grouped_rmsnorm(jnp.asarray(x), jnp.asarray(w), 4, eps=1e-5), LAYER_TOL)
+
+
+@pytest.mark.parametrize("mode", ["forward", "prefill", "decode"])
+def test_mamba2_apply(mode):
+    jc, tc, jp, tp = _params("zamba2-1.2b")
+    jpm = jax.tree_util.tree_map(lambda a: a[0, 1], jp["decoder"]["super"])
+    tpm = tp["decoder"]["super"][0][1]
+    B, S = 2, (1 if mode == "decode" else 21)  # 21: a ragged second chunk of 16
+    x = _rand(24, (B, S, jc.d_model))
+    js = ts = None
+    if mode != "forward":
+        st = jmamba.init_mamba_state(jc, B)
+        if mode == "decode":  # a live state: the decode step must carry it
+            st = {"conv": jnp.asarray(_rand(25, st["conv"].shape)),
+                  "ssm": jnp.asarray(_rand(26, st["ssm"].shape))}
+        js = st
+        ts = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+    out_j, st_j = jmamba.mamba2_apply(jpm, jnp.asarray(x), jc, state=js)
+    out_t, st_t = tmamba.mamba2_apply(tpm, torch.from_numpy(x), tc, state=ts)
+    _close(out_t, out_j, MODEL_TOL)
+    if mode != "forward":
+        for k in ("conv", "ssm"):
+            assert st_t[k].dtype == torch.float32
+            _close(st_t[k], st_j[k], MODEL_TOL)
+
+
 # ---------------------------------------------------------------------------
-# the dense model
+# whole models
 # ---------------------------------------------------------------------------
 
 def _tokens(cfg, B, S, seed):
@@ -181,4 +241,6 @@ def test_decode_matches_forward_exactly(arch, kv):
 
 def test_unported_family_names_its_slice():
     with pytest.raises(NotImplementedError, match="slice 3"):
+        tmodel.init_params(TCONFIGS["xlstm-1.3b"].reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
         tmodel.init_params(TCONFIGS["olmoe-1b-7b"].reduced(), device="cpu")
