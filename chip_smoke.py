@@ -12,12 +12,13 @@ script exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``) and the kernel
    build time;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
-   (see `compare` for the tolerances; the SSD's fp32 final state at the
-   JAX package's SSD bar), with its time, the plain version's, the least
-   time the card could take (``bound_ms``) and one PyTorch library call's
-   where one computes the same function (``F.scaled_dot_product_attention``,
-   a yardstick the port never calls; none for the SSD scan), at the serving
-   shapes of phases 3 and 3b first;
+   (see `compare` for the tolerances; the SSD's fp32 final state and the
+   fp32 mLSTM at the JAX package's bars), with its time, the plain
+   version's, the least time the card could take (``bound_ms``) and one
+   PyTorch library call's where one computes the same function
+   (``F.scaled_dot_product_attention``, a yardstick the port never calls;
+   none for the SSD scan and the mLSTM), at the serving shapes of phases
+   3, 3b and 3c first;
 3. serve: llama3-8b at full width (32 layers, random weights from a seed)
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
@@ -27,12 +28,19 @@ script exits non-zero:
 3b. serve: zamba2-1.2b (the Mamba2 hybrid) at full width (38 layers, the
    shared attention block every 6) the same way; the ssd, flash and decode
    counters all > 0 during this phase; then its decode-step profile;
+3c. serve: xlstm-1.3b at full width (48 layers: 6 groups of 7 mLSTM + 1
+   sLSTM, mLSTM head dim 1024) the same way; the mlstm counter > 0 during
+   this phase; then its decode-step profile, whose least step time counts
+   the recurrent state read and written beside the weights;
 4. consistency: llama3-8b width at 2 layers in fp32 (TF32 off), prefill and
    4 decode steps on the card (kernels) against the same weights on the CPU
    (plain versions): identical greedy tokens, logits within 2e-3;
 4b. the same for zamba2 width at 7 layers (one super block and a tail
    layer), two prompts of 200 tokens (a ragged second chunk), then
-   ``forward`` over the whole sequence on both devices.
+   ``forward`` over the whole sequence on both devices;
+4c. the same for xlstm width at 8 layers (one group of 7 mLSTM + 1 sLSTM),
+   prompts of 200 and of 137 tokens, each prefilled alone at its exact
+   length (as the engine groups them), then ``forward``.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving phase, error and times at the
@@ -57,7 +65,9 @@ BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 DECODE_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/mamba2_ssd.cu"
+MLSTM_SRC = "src/repro_torch/kernels/csrc/mlstm.cu"
 SSD_STATE_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:167
+MLSTM_F32_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:242
 SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
 
@@ -281,6 +291,68 @@ def ssd_case(torch, F, smod, flush, dev, name, B, S, H, G, dt, with_d=True,
     return row
 
 
+def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates):
+    """q, k, v in ``dt``, fp32 gates: with ``model_gates`` in the ranges of
+    xlstm's gate biases (i near -10, f biases 3-6), else the JAX test's
+    (i ~ N(0,1), f ~ N(2,1)).  ``kernel_ms`` times the wrapper's device
+    work: the kernel and the F cumsum it computes first."""
+    g = torch.Generator(device=dev).manual_seed(B * S + H + D)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(getattr(torch, dt))
+               for _ in range(3))
+    ig = torch.randn((B, S, H), generator=g, device=dev)
+    fg = torch.randn((B, S, H), generator=g, device=dev) + 2.0
+    if model_gates:
+        ig = ig * 0.1 - 10.0
+        fg = fg * 0.1 + torch.linspace(3.0, 6.0, H, device=dev)
+    out = mmod.mlstm(q, k, v, ig, fg)
+    exp = mmod.mlstm_plain(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    if dt == "float32":
+        err_t = (out - exp).abs()
+        ratio = (err_t / (MLSTM_F32_TOL["atol"] + MLSTM_F32_TOL["rtol"] * exp.abs())).max().item()
+        ok, err = ratio <= 1.0, err_t.max().item()
+    else:
+        ok, err, ratio = compare(out, exp, False)
+    # each input read once (q, k, v, both gates), the output written once;
+    # the causal pairs' q.k and w.v products
+    es = q.element_size()
+    nbytes = 4 * B * S * H * D * es + 2 * B * S * H * 4
+    flops = 4.0 * D * B * H * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, flops, dt)
+    row = {
+        "phase": "kernel", "kernel": "mlstm", "case": name,
+        "B": B, "S": S, "H": H, "D": D, "dtype": dt, "model_gates": model_gates,
+        "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
+        "kernel_ms": time_ms(torch, lambda: mmod.mlstm(q, k, v, ig, fg), 20, flush),
+        "call_ms": call_ms(torch, lambda: mmod.mlstm(q, k, v, ig, fg)),
+        "plain_ms": time_ms(torch, lambda: mmod.mlstm_plain(q, k, v, ig, fg), 5, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call computes the mLSTM cell
+    }
+    emit(row)
+    check(ok, f"mlstm {name}: error {ratio:.3g}x its limit (max_abs_err {err})")
+    return row
+
+
+def phase_mlstm(torch, mmod, dev):
+    """The mLSTM cases: xlstm-1.3b's serving shapes (H=4, D=1024, bf16)
+    first, then a long stateless forward and ragged fp32 cases."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for case in (
+        ("serve-300", 1, 300, 4, 1024, "bfloat16", True),
+        ("serve-16", 1, 16, 4, 1024, "bfloat16", True),
+        ("forward-2x2048", 2, 2048, 4, 1024, "bfloat16", True),
+        ("s1-f32-d64", 2, 1, 4, 64, "float32", False),
+        ("s17-f32-d64", 2, 17, 4, 64, "float32", False),
+        ("s1000-f32-d64", 2, 1000, 4, 64, "float32", False),
+        ("serve-300-f32", 1, 300, 4, 1024, "float32", True),
+    ):
+        rows.append(mlstm_case(torch, mmod, flush, dev, *case))
+    del flush
+    return rows
+
+
 def phase_kernels(torch, dmod, fmod, smod, dev):
     import torch.nn.functional as F
 
@@ -406,18 +478,25 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
     check(stats["mid_batch_admissions"] > 0, "no request was admitted mid-batch")
     for name, n in launches.items():
         check(n > 0, f"{name} kernel never launched on the {arch} serving path")
-    profile_decode(torch, np, eng, cfg, n_params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in port["tree_flatten"](params)[0])
+    # a recurrent family reads and writes its whole state every step
+    state_bytes = 0
+    if cfg.family == "ssm":
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in port["tree_flatten"](eng.cache)[0])
+    profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes)
+    profile_prefill(torch, port, params, cfg, dev)
     del eng, params
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_decode(torch, np, eng, cfg, n_params, n_steps=8):
+def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
     """Where a decode step's time goes with all 4 slots live: host-clock step
     time, device-busy time per step (the sum of the kernels `torch.profiler`
-    saw, one stream so no overlap), the idle share, and the kernels that take
-    the most device time."""
-    from torch.autograd import DeviceType
+    saw, one stream so no overlap), the idle share, the least step time
+    (the weights read once, and a recurrent state read and written once),
+    and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
@@ -432,21 +511,70 @@ def profile_decode(torch, np, eng, cfg, n_params, n_steps=8):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step_chunk(n_steps)
         torch.cuda.synchronize()
-    # device-side events only: an operator's entry repeats its kernels' time
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n_steps
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    ev, busy_ms, top = device_summary(prof, n_steps)
     emit({
         "phase": "serve_profile", "arch": cfg.name, "live_slots": 4, "steps": n_steps,
         "profiler_saw_device": bool(ev),
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-        "weights_bound_ms": n_params * 2 / HBM_BYTES_PER_S * 1e3,
-        "top_device_ms_per_step": [
-            [e.key[:80], e.self_device_time_total / 1e3 / n_steps, e.count // n_steps] for e in top
-        ],
+        "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "state_bound_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
+        "least_step_ms": (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
+        "top_device_ms_per_step": top,
     })
+
+
+def device_summary(prof, n):
+    """(device events, device-busy ms per run, the 8 largest [name, ms per
+    run, launches per run]) of a profile over ``n`` runs.  Device-side
+    events only: an operator's entry repeats its kernels' time."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    return ev, busy_ms, [[e.key[:80], e.self_device_time_total / 1e3 / n, e.count // n]
+                         for e in top]
+
+
+def profile_prefill(torch, port, params, cfg, dev, n_tok=300):
+    """Where the time of one ``n_tok``-token prefill goes (what a request's
+    TTFT pays once admitted): host-clock ms, device busy, the idle share,
+    the largest kernels; for xLSTM also the host-clock ms of its sLSTM
+    blocks alone (their recurrence runs one eager step per token)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_tok), generator=g, device=dev)
+
+    def run():
+        cache = port["init_cache"](cfg, 1, 1024, torch.float32, dev)
+        port["prefill"](params, cfg, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    ev, busy_ms, top = device_summary(prof, 1)
+    row = {
+        "phase": "prefill_profile", "arch": cfg.name, "prompt_len": n_tok,
+        "profiler_saw_device": bool(ev), "prefill_ms": prefill_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / prefill_ms), "top_device_ms": top,
+    }
+    if cfg.family == "ssm":
+        xl = port["xlstm"]
+        h = torch.randn((1, n_tok, cfg.d_model), generator=g, device=dev).to(getattr(torch, cfg.dtype))
+        t0 = time.perf_counter()
+        for grp in params["decoder"]:
+            xl.slstm_block_apply(grp["s"], h, cfg, state=xl.init_slstm_state(cfg, 1, dev))
+        torch.cuda.synchronize()
+        row["slstm_blocks"] = len(params["decoder"])
+        row["slstm_ms"] = (time.perf_counter() - t0) * 1e3
+    emit(row)
 
 
 # ---------------------------------------------------------------------------
@@ -454,10 +582,10 @@ def profile_decode(torch, np, eng, cfg, n_params, n_steps=8):
 # ---------------------------------------------------------------------------
 
 def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False):
-    """Prefill two prompts of ``lens`` tokens (right-padded to the longer),
-    then 4 greedy decode steps, on the card and on the CPU from the same
-    weights; with ``with_forward`` also ``forward`` over prompt + decoded
-    tokens (all rows one length)."""
+    """Prefill one prompt per entry of ``lens`` (right-padded to the
+    longest), then 4 greedy decode steps, on the card and on the CPU from
+    the same weights; with ``with_forward`` also ``forward`` over prompt +
+    decoded tokens (all rows one length)."""
     cfg = dataclasses.replace(
         port["CONFIGS"][arch], n_layers=n_layers, dtype="float32", param_dtype="float32"
     )
@@ -466,13 +594,13 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
     p_cpu = port["tree_map"](lambda t: t.cpu(), p_gpu)
     prefill, decode_step, init_cache = port["prefill"], port["decode_step"], port["init_cache"]
     lens = torch.tensor(lens)
-    L = int(lens.max())
-    toks = torch.randint(0, cfg.vocab_size, (2, L), generator=torch.Generator().manual_seed(2))
+    B, L = len(lens), int(lens.max())
+    toks = torch.randint(0, cfg.vocab_size, (B, L), generator=torch.Generator().manual_seed(2))
     results = {}
     for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
-        cache = init_cache(cfg, 2, L + 16, torch.float32, d)
+        cache = init_cache(cfg, B, L + 16, torch.float32, d)
         logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d)}, cache, all_logits=True)
-        last = logits[torch.arange(2, device=d), (lens - 1).to(d)]
+        last = logits[torch.arange(B, device=d), (lens - 1).to(d)]
         steps, tok, clen = [last.cpu()], last.argmax(-1), lens.to(d).to(torch.int32)
         picked = [tok.cpu()]
         for _ in range(4):
@@ -520,7 +648,9 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import mamba2_ssd as smod
+    from repro_torch.kernels import mlstm as mmod
     from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+    from repro_torch.models import xlstm
     from repro_torch.serve import ContinuousEngine, ServeConfig
     from repro_torch.serve import request_plane as rp
     from repro_torch.storage import KVStore, ObjectStore
@@ -530,9 +660,10 @@ def main() -> int:
         CONFIGS=CONFIGS, decode_step=decode_step, forward=forward, init_cache=init_cache,
         init_params=init_params, prefill=prefill, ContinuousEngine=ContinuousEngine,
         wrappers={"decode_attention": dmod.decode_attention,
-                  "flash_attention": fmod.flash_attention, "ssd": smod.ssd},
+                  "flash_attention": fmod.flash_attention, "ssd": smod.ssd,
+                  "mlstm": mmod.mlstm},
         ServeConfig=ServeConfig, rp=rp, KVStore=KVStore, ObjectStore=ObjectStore,
-        tree_flatten=tree_flatten, tree_map=tree_map,
+        tree_flatten=tree_flatten, tree_map=tree_map, xlstm=xlstm,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -558,19 +689,24 @@ def main() -> int:
     })
 
     rows = phase_kernels(torch, dmod, fmod, smod, dev)
+    rows["mlstm"] = phase_mlstm(torch, mmod, dev)
     launches = {
         "llama3-8b": phase_serve(torch, np, port, dev, card, "llama3-8b",
                                  ("decode_attention", "flash_attention")),
         "zamba2-1.2b": phase_serve(torch, np, port, dev, card, "zamba2-1.2b",
                                    ("decode_attention", "flash_attention", "ssd")),
+        "xlstm-1.3b": phase_serve(torch, np, port, dev, card, "xlstm-1.3b", ("mlstm",)),
     }
     phase_consistency(torch, port, dev, "llama3-8b", 2, [48, 37])
     phase_consistency(torch, port, dev, "zamba2-1.2b", 7, [200, 200], with_forward=True)
+    for n in (200, 137):  # exact-length prefill, as the engine groups xlstm prompts
+        phase_consistency(torch, port, dev, "xlstm-1.3b", 8, [n], with_forward=True)
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
         "flash_attention": ("src/repro/kernels/flash_attention.py:112", FLASH_SRC),
         "ssd": ("src/repro/kernels/mamba2_ssd.py:96", SSD_SRC),
+        "mlstm": ("src/repro/kernels/mlstm_kernel.py:98", MLSTM_SRC),
     }
     times = lambda r: {  # noqa: E731
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -579,7 +715,8 @@ def main() -> int:
     kernels = []
     for name, (rep, src) in replaces.items():
         # the first row is the longest serving shape of the first phase that
-        # runs the kernel (attention: llama3-8b; ssd: zamba2's 300 tokens)
+        # runs the kernel (attention: llama3-8b; ssd: zamba2's 300 tokens;
+        # mlstm: xlstm-1.3b's 300 tokens)
         by_phase = {arch: n[name] for arch, n in launches.items() if name in n}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -587,7 +724,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **times(rows[name][0]),
         }
-        if name != "ssd":  # the attention kernels at zamba2's serving shape too
+        if name in ("decode_attention", "flash_attention"):  # at zamba2's serving shape too
             entry["zamba2"] = times(next(r for r in rows[name] if r["case"].startswith("zamba2")))
         kernels.append(entry)
     print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)

@@ -5,7 +5,10 @@ The JAX package stacks a dense decoder's layer weights as (outer, period,
 the conversion unstacks layer ``o * period + i`` from ``leaf[o, i]``.  The
 hybrid stage stacks its Mamba layers as ``super`` (n_super, per, ...) and
 ``tail`` (n_tail, ...), unstacked the same way; its ``shared`` attention
-block is one dict, converted once (every super block reuses it).
+block is one dict, converted once (every super block reuses it).  The
+xLSTM stage stacks its mLSTM blocks as ``mlstm`` (n_groups, per - 1, ...)
+and its sLSTM blocks as ``slstm`` (n_groups, ...); the port keeps one
+``{"m": [...], "s": ...}`` dict per group.
 Weight layouts are the same on both sides (`wq (D, H, hd)`, `wo (H, hd,
 D)`, `w_gate (D, F)`), so no leaf is transposed.
 
@@ -23,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import PORTED
-from repro_torch.models.transformer import hybrid_shape, layer_period
+from repro_torch.models.transformer import hybrid_shape, layer_period, xlstm_groups
 from repro_torch.util import tree_map
 
 
@@ -35,8 +38,8 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """Convert a dense or hybrid model's JAX parameter tree (leaves as numpy
-    arrays)."""
+    """Convert a dense, hybrid or ssm model's JAX parameter tree (leaves as
+    numpy arrays)."""
     if cfg.family not in PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     conv = lambda a: tensor_from_numpy(a, device)  # noqa: E731
@@ -50,6 +53,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dic
             "shared": tree_map(conv, dec["shared"]),
             "tail": [tree_map(lambda a, i=i: conv(a[i]), dec["tail"]) for i in range(n_tail)],
         }
+        return out
+    if cfg.family == "ssm":
+        n_m, n_groups = xlstm_groups(cfg)
+        out["decoder"] = [
+            {"m": [tree_map(lambda a, g=g, i=i: conv(a[g, i]), dec["mlstm"]) for i in range(n_m)],
+             "s": tree_map(lambda a, g=g: conv(a[g]), dec["slstm"])}
+            for g in range(n_groups)
+        ]
         return out
     period = layer_period(cfg)
     outer = cfg.n_layers // period

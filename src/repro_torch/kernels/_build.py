@@ -29,7 +29,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-KERNELS = ("decode_attention", "flash_attention", "mamba2_ssd")
+KERNELS = ("decode_attention", "flash_attention", "mamba2_ssd", "mlstm")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

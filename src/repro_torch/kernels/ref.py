@@ -1,11 +1,14 @@
-"""Plain PyTorch oracles (the port of `repro.kernels.ref`: attention and
-the Mamba2 SSD scan).
+"""Plain PyTorch oracles (the port of `repro.kernels.ref`: attention, the
+Mamba2 SSD scan and the mLSTM cell).
 
 Written naively (full materialisation, or one step at a time) for
 auditability.  The attention references are the plain versions the CUDA
 attention kernels are held against on the card and the path their
 wrappers take for a CPU tensor; the SSD references are the oracles of the
-chunked plain scan in `mamba2_ssd.py`.
+chunked plain scan in `mamba2_ssd.py`; `mlstm_reference` is the plain
+mLSTM for short sequences (`mlstm.mlstm_plain`), `mlstm_recurrent_step`
+the oracle of the in-place decode step and, through
+`mlstm_prefill_replay`, of the closed-form prefill state.
 
 All arithmetic is fp32 whatever the input dtypes; the output takes the
 input's dtype (q, x), as the kernels' does.  Where every position of an
@@ -17,7 +20,7 @@ such a row.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -189,3 +192,78 @@ def ssd_chunked_reference(
         y = y + x.float() * D.float()[None, None, :, None]
     y = y.to(x.dtype)
     return (y, h) if return_state else y
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell)
+# ---------------------------------------------------------------------------
+
+def mlstm_reference(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, H, D)
+    v: torch.Tensor,  # (B, S, H, D)
+    i_gate: torch.Tensor,  # (B, S, H) input-gate preactivation
+    f_gate: torch.Tensor,  # (B, S, H) forget-gate preactivation
+) -> torch.Tensor:
+    """Stabilized parallel mLSTM (xLSTM eq. 19-27), fully materialised:
+        D_ts = F_t - F_s + i_s for s <= t, F = cumsum(log sigmoid f)
+        m_t  = max_s D_ts
+        out  = (q k^T / sqrt(d) * exp(D - m)) v / max(|row sum|, exp(-m_t))
+    """
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    F = torch.cumsum(torch.nn.functional.logsigmoid(f_gate.float()), dim=1)  # (B,S,H)
+    S = q.shape[1]
+    dmat = F[:, :, None, :] - F[:, None, :, :] + i_gate.float()[:, None, :, :]
+    tri = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    dmat = dmat.masked_fill(~tri[None, :, :, None], float("-inf"))
+    m = dmat.amax(dim=2, keepdim=True)  # (B,S,1,H) row max
+    dprime = torch.exp(dmat - m)
+    scores = torch.einsum("bthd,bshd->btsh", q.float(), k.float()) * scale
+    weights = scores * dprime
+    denom = torch.maximum(weights.sum(dim=2, keepdim=True).abs(), torch.exp(-m))
+    out = torch.einsum("btsh,bshd->bthd", weights / denom, v.float())
+    return out.to(q.dtype)
+
+
+def mlstm_recurrent_step(
+    c: torch.Tensor,  # (B, H, D, D) matrix memory
+    n: torch.Tensor,  # (B, H, D) normalizer
+    m: torch.Tensor,  # (B, H) stabilizer
+    q_t: torch.Tensor,  # (B, H, D)
+    k_t: torch.Tensor,
+    v_t: torch.Tensor,
+    i_t: torch.Tensor,  # (B, H)
+    f_t: torch.Tensor,  # (B, H)
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """One recurrent mLSTM step with full-size temporaries (the JAX
+    package's formula, term for term); returns ((c, n, m), h in q's dtype).
+    The state is not modified."""
+    scale = 1.0 / math.sqrt(q_t.shape[-1])
+    logf = torch.nn.functional.logsigmoid(f_t.float())
+    i_t = i_t.float()
+    m_new = torch.maximum(logf + m, i_t)
+    fgate = torch.exp(logf + m - m_new)
+    igate = torch.exp(i_t - m_new)
+    kf, vf, qs = k_t.float(), v_t.float(), q_t.float() * scale
+    c_new = fgate[..., None, None] * c + igate[..., None, None] * (vf[..., :, None] * kf[..., None, :])
+    n_new = fgate[..., None] * n + igate[..., None] * kf
+    h_num = torch.einsum("bhvk,bhk->bhv", c_new, qs)
+    h_den = torch.maximum(torch.einsum("bhk,bhk->bh", n_new, qs).abs(), torch.exp(-m_new))
+    return (c_new, n_new, m_new), (h_num / h_den[..., None]).to(q_t.dtype)
+
+
+def mlstm_prefill_replay(
+    c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,  # (B, S, H, D)
+    i_gate: torch.Tensor, f_gate: torch.Tensor,  # (B, S, H)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The final (c, n, m) after a prompt, one recurrent step per token:
+    what the JAX mLSTM block's prefill computes (`repro/models/xlstm.py`,
+    the scan over `mlstm_decode_step`).  The oracle of the closed form in
+    `models/xlstm.py`; S sequential steps, so tests only."""
+    for t in range(q.shape[1]):
+        (c, n, m), _ = mlstm_recurrent_step(
+            c, n, m, q[:, t], k[:, t], v[:, t], i_gate[:, t], f_gate[:, t]
+        )
+    return c, n, m

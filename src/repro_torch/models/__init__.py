@@ -1,7 +1,8 @@
-"""Model zoo, PyTorch port: the dense GQA decoder family and the zamba2
-hybrid (Mamba2 layers with a shared attention block)."""
+"""Model zoo, PyTorch port: the dense GQA decoder family, the zamba2
+hybrid (Mamba2 layers with a shared attention block) and xLSTM (mLSTM and
+sLSTM blocks)."""
 
-from . import attention, cache_update, layers, mamba2, model, transformer
+from . import attention, cache_update, layers, mamba2, model, transformer, xlstm
 from .model import (
     cache_batch_axes,
     decode_step,
@@ -19,6 +20,7 @@ __all__ = [
     "mamba2",
     "model",
     "transformer",
+    "xlstm",
     "cache_batch_axes",
     "decode_step",
     "forward",

@@ -34,8 +34,9 @@ def _normal(shape, std: float, gen: torch.Generator, dtype, device) -> torch.Ten
     return out.to(dtype)
 
 
-def dense_init(gen, in_dim: int, *out_dims: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    std = (2.0 / (in_dim + math.prod(out_dims))) ** 0.5
+def dense_init(gen, in_dim: int, *out_dims: int, dtype=torch.float32, device="cpu",
+               scale: Optional[float] = None) -> torch.Tensor:
+    std = scale if scale is not None else (2.0 / (in_dim + math.prod(out_dims))) ** 0.5
     return _normal((in_dim, *out_dims), std, gen, dtype, device)
 
 

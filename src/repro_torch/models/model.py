@@ -1,11 +1,11 @@
-"""Model facade for the dense and hybrid families: init / forward /
-prefill / decode (port of `repro.models.model`).
+"""Model facade for the dense, hybrid and ssm (xLSTM) families: init /
+forward / prefill / decode (port of `repro.models.model`).
 
 Parameters: {"embed": {"tok": (V, D)}, "final_norm": (D,), "lm_head": (D, V)
 unless tied, "decoder": the stage}.  The dense stage is [per-layer dict,
 ...] with caches {"decoder": [{"k", "v"} per layer]}, each (B, S, K, hd);
-the hybrid stage and its cache are described in `transformer`.  Caches are
-updated in place.
+the hybrid and xLSTM stages and their caches are described in
+`transformer`.  Caches are updated in place.
 
 Other families raise `NotImplementedError` naming the ROADMAP.md slice
 that brings them.
@@ -24,13 +24,13 @@ from repro_torch.util import tree_map
 from . import attention as attn
 from . import mamba2 as mb
 from . import transformer as tfm
+from . import xlstm as xl
 from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
 
 Batch = Dict[str, torch.Tensor]
 
-PORTED = ("dense", "hybrid")  # the families the port serves
+PORTED = ("dense", "hybrid", "ssm")  # the families the port serves
 _LATER = {
-    "ssm": "slice 3 (xLSTM)",
     "moe": "slice 4 (MLA + MoE)",
     "encdec": "slice 4 (whisper enc-dec)",
     "vlm": "slice 4 (VLM prefix)",
@@ -66,6 +66,8 @@ def init_params(
         p["lm_head"] = embed_init(generator, cfg.d_model, cfg.vocab_size, **kw)
     if cfg.family == "hybrid":
         p["decoder"] = tfm.hybrid_stage_init(generator, cfg, **kw)
+    elif cfg.family == "ssm":
+        p["decoder"] = tfm.xlstm_stage_init(generator, cfg, **kw)
     else:
         p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers, **kw)
     return p
@@ -90,6 +92,8 @@ def _lm_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _stage_apply(p: Params, cfg: ModelConfig, h: torch.Tensor, **kw):
+    if cfg.family == "ssm":  # no positions: the recurrences carry them
+        return tfm.xlstm_stage_apply(p["decoder"], h, cfg, cache=kw.get("cache"))
     stage = tfm.hybrid_stage_apply if cfg.family == "hybrid" else tfm.decoder_stage_apply
     return stage(p["decoder"], h, cfg, **kw)
 
@@ -113,7 +117,9 @@ def init_cache(
 ) -> Dict[str, Any]:
     """Dense: a KV cache per layer.  Hybrid: a KV cache per super block
     (the shared block attends once per super block) in ``cache_dtype``, and
-    per Mamba layer a conv state and an ssm state, both fp32."""
+    per Mamba layer a conv state and an ssm state, both fp32.  ssm: per
+    mLSTM and sLSTM block its recurrent state, all fp32 whatever
+    ``cache_dtype`` (``max_len`` does not size it)."""
     _check_family(cfg)
     dev = resolve_device(device)
     kv = lambda: attn.init_kv_cache(cfg, batch_size, max_len, cache_dtype, dev)  # noqa: E731
@@ -124,6 +130,13 @@ def init_cache(
             "super": [{"mamba": [ms() for _ in range(per)], "attn": kv()} for _ in range(n_super)],
             "tail": [ms() for _ in range(n_tail)],
         }}
+    if cfg.family == "ssm":
+        n_m, n_groups = tfm.xlstm_groups(cfg)
+        return {"decoder": [
+            {"m": [xl.init_mlstm_state(cfg, batch_size, dev) for _ in range(n_m)],
+             "s": xl.init_slstm_state(cfg, batch_size, dev)}
+            for _ in range(n_groups)
+        ]}
     return {"decoder": [kv() for _ in range(cfg.n_layers)]}
 
 
@@ -177,8 +190,11 @@ def decode_step(
     else:
         cache_len = int(cache_len)
         positions = torch.tensor([cache_len], device=dev)
+    attend_len = None
+    if cfg.family != "ssm":  # the recurrent family attends over nothing
+        attend_len = attn.decode_lengths(cache_len, tokens.shape[0], dev)
     h, layers = _stage_apply(
         p, cfg, h, positions=positions, cache=cache["decoder"], cache_len=cache_len,
-        attend_len=attn.decode_lengths(cache_len, tokens.shape[0], dev),
+        attend_len=attend_len,
     )
     return _lm_logits(p, cfg, h), {"decoder": layers}

@@ -1,5 +1,5 @@
-"""Decoder stages: dense and the zamba2 hybrid (port of the dense and
-hybrid parts of `repro.models.transformer`).
+"""Decoder stages: dense, the zamba2 hybrid and xLSTM (port of the dense,
+hybrid and xlstm parts of `repro.models.transformer`).
 
 The JAX package stacks layer parameters as (outer, period, ...) and scans
 over them; eagerly, the port keeps a plain list of per-layer dicts in
@@ -7,8 +7,9 @@ layer order (layer ``o * period + i``) and loops.  The local/global window
 period (gemma2: [local, global]) and sandwich norms carry over.  The hybrid
 stage is {"super": [[Mamba2 layer] * shared_attn_every] * n_super, "shared":
 one attention block reused after every super block, "tail": [Mamba2
-layer] * n_tail}.  MoE, MLA, xLSTM and enc-dec stages come with later
-slices.
+layer] * n_tail}.  The xLSTM stage is [{"m": [mLSTM block] * (slstm_every
+- 1), "s": sLSTM block}] * n_groups.  MoE, MLA and enc-dec stages come with
+later slices.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
 from . import mamba2 as mb
+from . import xlstm as xl
 from .layers import Params, _normal, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 
@@ -182,4 +184,43 @@ def hybrid_stage_apply(
     for i, lp in enumerate(params["tail"]):
         out, _ = mb.mamba2_apply(lp, h, cfg, state=None if cache is None else cache["tail"][i])
         h = h + out
+    return h, cache
+
+
+# ---------------------------------------------------------------------------
+# xlstm stage: groups of (slstm_every - 1) mLSTM blocks + 1 sLSTM block
+# ---------------------------------------------------------------------------
+
+def xlstm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(mLSTM blocks per group, groups)."""
+    per = cfg.xlstm.slstm_every
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.n_layers} layers not a multiple of slstm_every {per}")
+    return per - 1, cfg.n_layers // per
+
+
+def xlstm_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> List[Params]:
+    n_m, n_groups = xlstm_groups(cfg)
+    kw = dict(dtype=dtype, device=device)
+    return [
+        {"m": [xl.mlstm_block_init(gen, cfg, **kw) for _ in range(n_m)],
+         "s": xl.slstm_block_init(gen, cfg, **kw)}
+        for _ in range(n_groups)
+    ]
+
+
+def xlstm_stage_apply(
+    groups: List[Params],
+    h: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    cache: Optional[List[Dict]] = None,
+) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+    """Cache: [{"m": [mLSTM state] * n_m, "s": sLSTM state}] * n_groups,
+    updated in place."""
+    for g, grp in enumerate(groups):
+        c = None if cache is None else cache[g]
+        for i, lp in enumerate(grp["m"]):
+            h, _ = xl.mlstm_block_apply(lp, h, cfg, state=None if c is None else c["m"][i])
+        h, _ = xl.slstm_block_apply(grp["s"], h, cfg, state=None if c is None else c["s"])
     return h, cache

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (attention, Mamba2 SSD) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels (attention, Mamba2 SSD, mLSTM) against their
+plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU (marked `cuda`; each test skips without one) and
 imports only torch and the port, so it runs where jax is not installed:
@@ -10,7 +10,8 @@ Tolerances, by the output's dtype: fp32 2e-5 (`tests/test_kernels.py`'s
 bar); bf16 one bf16 step at the largest value of the output row, and never
 more than `tests/test_kernels.py`'s 2e-2 (both sides are fp32 results
 rounded to bf16).  The SSD's fp32 final state: atol 5e-4 + rtol 1e-3
-(`tests/test_kernels.py`'s SSD bar).
+(`tests/test_kernels.py`'s SSD bar).  The mLSTM in fp32: atol 5e-4 + rtol
+1e-3 (`tests/test_kernels.py`'s mLSTM bar); in bf16 the rule above.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
+from repro_torch.kernels import mlstm as mmod  # noqa: E402
 
 BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 
@@ -197,3 +199,79 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):  # a chunk larger than the kernel's tile
         smod.ssd(torch.cat([x] * 16, 1), torch.cat([dt] * 16, 1), A,
                  torch.cat([Bm] * 16, 1), torch.cat([Cm] * 16, 1), D, chunk=256)
+
+
+def _mlstm_inputs(rng, B, S, H, D, dev, dtype, model_gates):
+    """q, k, v in ``dtype``; fp32 gates: the model's ranges (i near -10, f
+    biases 3-6) or the JAX test's (i ~ N(0,1), f ~ N(2,1))."""
+    q, k, v = (_t(rng, (B, S, H, D), dev, dtype) for _ in range(3))
+    ig = _t(rng, (B, S, H), dev, torch.float32)
+    fg = _t(rng, (B, S, H), dev, torch.float32) + 2.0
+    if model_gates:
+        ig = ig * 0.1 - 10.0
+        fg = fg * 0.1 + torch.linspace(3.0, 6.0, H, device=dev)
+    return q, k, v, ig, fg
+
+
+def _check_mlstm(out, exp):
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, exp, atol=5e-4, rtol=1e-3)
+    else:
+        assert_matches_plain(out, exp)
+
+
+MLSTM_CASES = [
+    # B, S, H, D, dtype, model gates: the cases of chip_smoke.py's phase 2
+    (1, 300, 4, 1024, torch.bfloat16, True),   # xlstm-1.3b serving prefill
+    (1, 16, 4, 1024, torch.bfloat16, True),
+    (2, 2048, 4, 1024, torch.bfloat16, True),  # long stateless forward
+    (2, 1, 4, 64, torch.float32, False),       # ragged S
+    (2, 17, 4, 64, torch.float32, False),
+    (2, 1000, 4, 64, torch.float32, False),
+    (2, 300, 4, 1024, torch.float32, True),
+    (2, 77, 3, 192, torch.bfloat16, False),    # D a multiple of 64, not of 128
+    (1, 130, 2, 128, torch.float32, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,dtype,model_gates", MLSTM_CASES)
+def test_mlstm_kernel_matches_plain(cuda, B, S, H, D, dtype, model_gates):
+    rng = np.random.default_rng(S + D)
+    inp = _mlstm_inputs(rng, B, S, H, D, cuda, dtype, model_gates)
+    before = mmod.mlstm.launches
+    out = mmod.mlstm(*inp)
+    assert mmod.mlstm.launches == before + 1
+    _check_mlstm(out, mmod.mlstm_plain(*inp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_reads_strided_inputs(cuda, dtype):
+    """q, k, v as views: head-major storage permuted to (B, S, H, D), and
+    slices of one wider buffer; non-contiguous gates."""
+    rng = np.random.default_rng(3)
+    B, S, H, D = 2, 150, 4, 128
+    q = _t(rng, (B, H, S, D), cuda, dtype).transpose(1, 2)
+    kv = _t(rng, (B, S, H, 2 * D), cuda, dtype)
+    k, v = kv[..., :D], kv[..., D:]
+    g = _t(rng, (B, H, S, 2), cuda, torch.float32).transpose(1, 2)
+    ig, fg = g[..., 0] - 1.0, g[..., 1] + 2.0
+    out = mmod.mlstm(q, k, v, ig, fg)
+    _check_mlstm(out, mmod.mlstm_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       ig.contiguous(), fg.contiguous()))
+
+
+@pytest.mark.cuda
+def test_mlstm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(4)
+    q, k, v, ig, fg = _mlstm_inputs(rng, 1, 16, 2, 64, cuda, torch.float32, False)
+    with pytest.raises(ValueError):  # head_dim 32
+        mmod.mlstm(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                   v[..., :32].contiguous(), ig, fg)
+    with pytest.raises(TypeError):  # mixed q / k types
+        mmod.mlstm(q, k.bfloat16(), v, ig, fg)
+    with pytest.raises(ValueError):  # gates of another length
+        mmod.mlstm(q, k, v, ig[:, :8], fg)
+    with pytest.raises(ValueError):  # last dim not contiguous
+        mmod.mlstm(torch.cat([q, q], -1)[..., ::2], k, v, ig, fg)

@@ -1,10 +1,14 @@
-"""The port's kernels (attention, Mamba2 SSD) against the JAX package's.
+"""The port's kernels (attention, Mamba2 SSD, mLSTM) against the JAX
+package's.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against `repro.kernels.ref` (and the Pallas kernels in interpret mode)
 on the same numpy inputs, at `tests/test_kernels.py`'s bars: attention fp32
 2e-5; SSD atol 5e-4 + rtol 1e-3 (the same scan in another summation
-order), decode steps 1e-4 + 1e-3.
+order), decode steps 1e-4 + 1e-3.  The plain mLSTM is held at 2e-5 (atol,
+rtol 1e-4) to the JAX reference, the interpret-mode Pallas kernel and the
+blockwise scan JAX runs at S = 300; the closed-form prefill state at 1e-4
+relative (c, n) and 1e-5 (m) to the step-by-step replay.
 The CUDA kernels themselves are compared with the plain versions by
 `tests/test_torch_cuda.py` (marked `cuda`, skipped without a GPU) and by
 `chip_smoke.py`.
@@ -21,9 +25,12 @@ from repro.kernels.decode_attention import decode_attention_pallas  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.mamba2_ssd import ssd_pallas  # noqa: E402
+from repro.kernels.mlstm_kernel import mlstm_pallas  # noqa: E402
 from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
+from repro_torch.kernels import mlstm as mmod  # noqa: E402
+from repro_torch.models import xlstm as txl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 torch.set_num_threads(1)
@@ -279,3 +286,118 @@ def test_ssd_dispatch_cpu_tensors_to_plain_version():
     torch.testing.assert_close(y, ey, rtol=0, atol=0)
     torch.testing.assert_close(h, eh, rtol=0, atol=0)
     assert smod.ssd.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def _mlstm_inputs(B, S, H, D, seed, model_gates=False):
+    """q, k, v, i, f as numpy fp32: the JAX test's gates (i ~ N(0,1),
+    f ~ N(2,1)), or with ``model_gates`` the ranges of the model's gate
+    biases (i near -10, f biases 3-6)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = _np(rng, (B, S, H, D)), _np(rng, (B, S, H, D)), _np(rng, (B, S, H, D))
+    ig, fg = _np(rng, (B, S, H)), _np(rng, (B, S, H)) + 2.0
+    if model_gates:
+        ig = ig * 0.1 - 10.0
+        fg = fg * 0.1 + np.linspace(3.0, 6.0, H, dtype=np.float32)
+    return q, k, v, ig, fg
+
+
+@pytest.mark.parametrize("oracle", ["reference", "jax_ops"])
+@pytest.mark.parametrize("S,H,D,model_gates", [
+    (48, 2, 16, False), (300, 2, 32, False), (300, 4, 64, True), (520, 1, 16, False),
+])
+def test_mlstm_plain_matches_jax(S, H, D, model_gates, oracle):
+    """S <= 256 runs the reference; S = 300 and 520 the blockwise scan
+    (block_k 4 and 8 by the JAX rule), as `ops.mlstm_parallel` does."""
+    inp = _mlstm_inputs(2, S, H, D, S + D, model_gates)
+    out = mmod.mlstm(*_t(inp))
+    fn = jref.mlstm_reference if oracle == "reference" else jops.mlstm_parallel
+    np.testing.assert_allclose(out.numpy(), np.asarray(fn(*_j(inp))), **TOL)
+
+
+@pytest.mark.parametrize("S,H,D,bq,bk", [
+    (128, 2, 32, 64, 64),   # the cases of tests/test_kernels.py
+    (256, 4, 16, 128, 64),
+    (128, 2, 64, 128, 32),
+])
+def test_mlstm_plain_matches_pallas_interpret(S, H, D, bq, bk):
+    inp = _mlstm_inputs(2, S, H, D, S + D)
+    out = mmod.mlstm(*_t(inp))
+    exp = mlstm_pallas(*_j(inp), block_q=bq, block_k=bk, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), **TOL)
+
+
+def test_mlstm_chunked_matches_reference():
+    """The twin of tests/test_kernels.py::test_mlstm_chunked_jnp_matches_ref."""
+    inp = _t(_mlstm_inputs(1, 512, 2, 16, 11))
+    out = mmod.mlstm_plain(*inp, block_k=128)
+    torch.testing.assert_close(out, ref.mlstm_reference(*inp), **TOL)
+
+
+def _state(rng, B, H, D):
+    c, n = _np(rng, (B, H, D, D)), _np(rng, (B, H, D))
+    m = rng.uniform(-3.0, 1.0, size=(B, H)).astype(np.float32)
+    return c, n, m
+
+
+def test_mlstm_recurrent_step_matches_jax():
+    """The in-place decode step and the port's oracle step against the JAX
+    package's, from a live state."""
+    q, k, v, ig, fg = _mlstm_inputs(3, 1, 2, 16, 21)
+    c, n, m = _state(np.random.default_rng(22), 3, 2, 16)
+    step = [a[:, 0] for a in (q, k, v, ig, fg)]
+    (ec, en, em), eh = jops.mlstm_decode_step(*_j([c, n, m] + step))
+    (rc, rn, rm), rh = ref.mlstm_recurrent_step(*_t([c, n, m] + step))
+    tc, tn, tm = (torch.tensor(a) for a in (c, n, m))  # owned copies: updated in place
+    h = ops.mlstm_decode_step(tc, tn, tm, *_t(step))
+    for got in ((tc, tn, tm, h), (rc, rn, rm, rh)):
+        for a, e in zip(got, (ec, en, em, eh)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(e), **STEP_TOL)
+
+
+@pytest.mark.parametrize("model_gates", [False, True])
+def test_mlstm_closed_form_prefill_state_matches_replay(model_gates):
+    """`models.xlstm.mlstm_prefill_state` from a live state against the
+    port's step-by-step replay and the JAX package's steps."""
+    B, S, H, D = 2, 77, 2, 16
+    q, k, v, ig, fg = _mlstm_inputs(B, S, H, D, 23, model_gates)
+    c, n, m = _state(np.random.default_rng(24), B, H, D)
+    st = {key: torch.tensor(a) for key, a in zip("cnm", (c, n, m))}  # updated in place
+    txl.mlstm_prefill_state(st, T(k), T(v), T(ig), mmod.gate_cumsum(T(fg)))
+    rep = ref.mlstm_prefill_replay(*_t([c, n, m, q, k, v, ig, fg]))
+    jc, jn, jm = (jnp.asarray(a) for a in (c, n, m))
+    for t in range(S):
+        (jc, jn, jm), _ = jops.mlstm_decode_step(jc, jn, jm, *(jnp.asarray(a[:, t])
+                                                               for a in (q, k, v, ig, fg)))
+    for key, r, j in zip("cnm", rep, (jc, jn, jm)):
+        tol = dict(atol=0, rtol=1e-5) if key == "m" else dict(atol=0, rtol=1e-4)
+        scale = r.abs().max().item()  # relative to the state's largest entry
+        assert (st[key] - r).abs().max().item() <= tol["rtol"] * scale, key
+        assert np.abs(st[key].numpy() - np.asarray(j)).max() <= tol["rtol"] * scale, key
+
+
+def test_mlstm_prefill_state_continues_decode():
+    """The twin of tests/test_kernels.py::test_mlstm_recurrent_matches_parallel
+    across the prefill/decode seam: the closed-form state after 40 tokens,
+    continued by 8 in-place decode steps, gives the parallel form's
+    outputs at those positions."""
+    S, n_dec = 40, 8
+    q, k, v, ig, fg = _t(_mlstm_inputs(2, S + n_dec, 2, 8, 13))
+    full = ref.mlstm_reference(q, k, v, ig, fg)
+    st = {"c": torch.zeros(2, 2, 8, 8), "n": torch.zeros(2, 2, 8), "m": torch.full((2, 2), -1e9)}
+    txl.mlstm_prefill_state(st, k[:, :S], v[:, :S], ig[:, :S], mmod.gate_cumsum(fg[:, :S]))
+    outs = [ops.mlstm_decode_step(st["c"], st["n"], st["m"], q[:, t], k[:, t], v[:, t],
+                                  ig[:, t], fg[:, t]) for t in range(S, S + n_dec)]
+    torch.testing.assert_close(torch.stack(outs, 1), full[:, S:], **STEP_TOL)
+
+
+def test_mlstm_dispatch_cpu_tensors_to_plain_version():
+    mmod.mlstm.launches = 0
+    for S in (17, 300):
+        inp = _t(_mlstm_inputs(1, S, 2, 16, S))
+        torch.testing.assert_close(ops.mlstm_parallel(*inp), mmod.mlstm_plain(*inp),
+                                   rtol=0, atol=0)
+    assert mmod.mlstm.launches == 0

@@ -1,5 +1,5 @@
-"""The port's model layers and models (dense, zamba2 hybrid) against the
-JAX package's.
+"""The port's model layers and models (dense, zamba2 hybrid, xLSTM) against
+the JAX package's.
 
 Weights come from `repro.models.init_params` at PRNGKey(0), converted by
 `repro_torch.bridge`; inputs are made with numpy from a seed and fed to
@@ -22,6 +22,7 @@ from repro.models import cache_update as jcu  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import mamba2 as jmamba  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
+from repro.models import xlstm as jxl  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import CONFIGS as TCONFIGS  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -29,6 +30,7 @@ from repro_torch.models import cache_update as tcu  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import mamba2 as tmamba  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models import xlstm as txl  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -44,16 +46,19 @@ MODEL_CASES = [
     ("llama3-8b", 2),         # GQA group 2
     ("zamba2-1.2b", None),    # hybrid: 4 layers, shared_attn_every=2
     ("zamba2-1.2b", 5),       # hybrid with a tail layer
+    ("xlstm-1.3b", None),     # ssm: one group of 3 mLSTM + 1 sLSTM, mLSTM head dim 64
+    ("xlstm-1.3b", 8),        # ssm: two groups
 ]
 _CACHE = {}
 
 
 def _cfgs(arch, kv=None):
     """Reduced configs; ``kv`` overrides n_kv_heads, except for the hybrid
-    where it overrides n_layers (5: two super blocks of 2 and a tail)."""
+    and ssm families where it overrides n_layers (hybrid 5: two super
+    blocks of 2 and a tail; ssm 8: two groups)."""
     jc, tc = JCONFIGS[arch].reduced(), TCONFIGS[arch].reduced()
     if kv is not None:
-        field = "n_layers" if jc.family == "hybrid" else "n_kv_heads"
+        field = "n_layers" if jc.family in ("hybrid", "ssm") else "n_kv_heads"
         jc, tc = dataclasses.replace(jc, **{field: kv}), dataclasses.replace(tc, **{field: kv})
     return jc, tc
 
@@ -206,6 +211,65 @@ def test_mamba2_apply(mode):
             _close(st_t[k], st_j[k], MODEL_TOL)
 
 
+XL_MODES = ["forward", "prefill", "decode", "prompt1"]
+
+
+def _xl_state(init_fn, jc, B, mode, seed):
+    """A JAX state and its torch copy: fresh for prefill and a one-token
+    prompt, live (random, m finite) for a decode step."""
+    st = init_fn(jc, B)
+    if mode == "decode":
+        st = {k: jnp.asarray(_rand(seed + i, v.shape) - (3.0 if k == "m" else 0.0))
+              for i, (k, v) in enumerate(st.items())}
+        if "h" not in st:  # the mLSTM normalizer state n stays positive-ish
+            st["n"] = jnp.abs(st["n"])
+    return st, {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+
+
+@pytest.mark.parametrize("mode", XL_MODES)
+def test_mlstm_block_apply(mode):
+    """The mLSTM block in its three modes and a one-token prompt (which takes
+    the recurrent branch, as in the JAX block).  The prefill state comes
+    from the closed form here and from the step-by-step replay in JAX:
+    c and n at 1e-4 of their largest entry, m at 1e-5."""
+    jc, tc, jp, tp = _params("xlstm-1.3b")
+    jpm = jax.tree_util.tree_map(lambda a: a[0, 1], jp["decoder"]["mlstm"])
+    tpm = tp["decoder"][0]["m"][1]
+    B, S = 2, {"forward": 21, "prefill": 37, "decode": 1, "prompt1": 1}[mode]
+    x = _rand(27, (B, S, jc.d_model))
+    js = ts = None
+    if mode != "forward":
+        js, ts = _xl_state(jxl.init_mlstm_state, jc, B, mode, 28)
+    out_j, st_j = jxl.mlstm_block_apply(jpm, jnp.asarray(x), jc, state=js)
+    out_t, st_t = txl.mlstm_block_apply(tpm, torch.from_numpy(x), tc, state=ts)
+    _close(out_t, out_j, MODEL_TOL)
+    if mode != "forward":
+        for k in ("conv", "c", "n", "m"):
+            assert st_t[k].dtype == torch.float32
+            exp = np.asarray(st_j[k])
+            rel = 1e-5 if k == "m" else 1e-4
+            err = np.abs(st_t[k].numpy() - exp).max()
+            assert err <= rel * np.abs(exp).max() + (1e-6 if k == "conv" else 0.0), (k, err)
+
+
+@pytest.mark.parametrize("mode", XL_MODES)
+def test_slstm_block_apply(mode):
+    jc, tc, jp, tp = _params("xlstm-1.3b")
+    jps = jax.tree_util.tree_map(lambda a: a[0], jp["decoder"]["slstm"])
+    tps = tp["decoder"][0]["s"]
+    B, S = 2, {"forward": 21, "prefill": 13, "decode": 1, "prompt1": 1}[mode]
+    x = _rand(29, (B, S, jc.d_model))
+    js = ts = None
+    if mode != "forward":
+        js, ts = _xl_state(jxl.init_slstm_state, jc, B, mode, 30)
+    out_j, st_j = jxl.slstm_block_apply(jps, jnp.asarray(x), jc, state=js)
+    out_t, st_t = txl.slstm_block_apply(tps, torch.from_numpy(x), tc, state=ts)
+    _close(out_t, out_j, MODEL_TOL)
+    if mode != "forward":
+        for k in ("conv", "c", "n", "m", "h"):
+            _close(st_t[k], st_j[k], MODEL_TOL)
+
+
 # ---------------------------------------------------------------------------
 # whole models
 # ---------------------------------------------------------------------------
@@ -240,7 +304,7 @@ def test_decode_matches_forward_exactly(arch, kv):
 
 
 def test_unported_family_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tmodel.init_params(TCONFIGS["xlstm-1.3b"].reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tmodel.init_params(TCONFIGS["whisper-large-v3"].reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         tmodel.init_params(TCONFIGS["olmoe-1b-7b"].reduced(), device="cpu")

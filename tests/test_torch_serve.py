@@ -103,6 +103,36 @@ def test_hybrid_greedy_tokens_match_jax_continuous_engine():
         assert len(got[r]) == 8 and got[r] == exp[r], r
 
 
+def test_xlstm_greedy_tokens_match_jax_continuous_engine():
+    """xlstm (reduced): exact-length prefill groups (a one-token prompt
+    among them, which takes the recurrent branch), one admission mid-batch,
+    greedy tokens equal to the JAX engine's on the same weights -- the
+    oracle tests/test_serve_continuous.py drives for xlstm."""
+    cfg, (jp, tp), kw = _setup("xlstm-1.3b", max_new_tokens=8)
+    pa, pb, pc, pd = _prompts(cfg, [6, 6, 13, 1], seed=6)
+
+    def drive(eng):
+        eng.admit([("a", pa, 8), ("b", pb, 8)])  # one prefill group of length 6
+        done, _ = eng.step_chunk(2)
+        eng.admit([("c", pc, 8)])
+        assert eng.stats["mid_batch_admissions"] == 1 and eng.stats["prefill_groups"] == 2
+        out = {r: s.out for r, s in done.items()}
+        while eng.n_live() == 3:
+            done, _ = eng.step_chunk(1)
+            out.update({r: s.out for r, s in done.items()})
+        eng.admit([("d", pd, 8)])
+        while eng.n_live():
+            done, _ = eng.step_chunk()
+            out.update({r: s.out for r, s in done.items()})
+        return out
+
+    exp = drive(JContinuousEngine(JCONFIGS["xlstm-1.3b"].reduced(), jp, JServeConfig(**kw)))
+    got = drive(ContinuousEngine(cfg, tp, ServeConfig(**kw), device="cpu"))
+    assert sorted(got) == ["a", "b", "c", "d"]
+    for r in got:
+        assert len(got[r]) == 8 and got[r] == exp[r], r
+
+
 def test_mid_stream_admission_without_draining():
     cfg, (_, tp), kw = _setup(max_new_tokens=10)
     scfg = ServeConfig(**kw)
@@ -202,6 +232,20 @@ def test_serve_cli_serves_the_hybrid_on_cpu():
     env = dict(os.environ, PYTHONPATH=_SRC)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "zamba2-1.2b", "--reduced",
+         "--device", "cpu", "--demo-requests", "4", "--idle-timeout", "0.5",
+         "--new-tokens", "4"],
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "READY engine-0"
+    assert "served 4 requests, 16 tokens" in lines[-1]
+
+
+def test_serve_cli_serves_xlstm_on_cpu():
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "xlstm-1.3b", "--reduced",
          "--device", "cpu", "--demo-requests", "4", "--idle-timeout", "0.5",
          "--new-tokens", "4"],
         env=env, capture_output=True, text=True, timeout=120,
