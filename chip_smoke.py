@@ -13,7 +13,8 @@ script exits non-zero:
    build time;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    (see `compare` for the tolerances; the SSD's fp32 final state and the
-   fp32 mLSTM at the JAX package's bars), with its time, the plain
+   fp32 mLSTM at the JAX package's bars; bf16 flash attention and mLSTM
+   run the tensor-core kernels, fp32 the scalar ones), with its time, the plain
    version's, the least time the card could take (``bound_ms``) and one
    PyTorch library call's where one computes the same function
    (``F.scaled_dot_product_attention``, a yardstick the port never calls;
@@ -23,8 +24,8 @@ script exits non-zero:
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
    published exactly once, some admitted mid-batch, and both attention
-   kernels' launch counters > 0 during this phase; then a profile of the
-   decode step;
+   kernels' launch counters > 0 during this phase (flash attention's all
+   on its tensor-core route); then a profile of the decode step;
 3b. serve: zamba2-1.2b (the Mamba2 hybrid) at full width (38 layers, the
    shared attention block every 6) the same way; the ssd, flash and decode
    counters all > 0 during this phase; then its decode-step profile;
@@ -222,7 +223,7 @@ def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
         "phase": "kernel", "kernel": "flash_attention", "case": name,
         "B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": K, "D": D, "dtype": dt,
         "causal": causal, "window": window, "softcap": cap, "q_offset": q_offset,
-        "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
+        "route": fmod.ROUTES[q.dtype], "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
         "kernel_ms": time_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw), 10, flush),
         "call_ms": call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
         "plain_ms": time_ms(torch, lambda: fmod.flash_attention_plain(q, k, v, **kw), 5, flush),
@@ -291,11 +292,14 @@ def ssd_case(torch, F, smod, flush, dev, name, B, S, H, G, dt, with_d=True,
     return row
 
 
-def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates):
+def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates, chunks=1):
     """q, k, v in ``dt``, fp32 gates: with ``model_gates`` in the ranges of
     xlstm's gate biases (i near -10, f biases 3-6), else the JAX test's
     (i ~ N(0,1), f ~ N(2,1)).  ``kernel_ms`` times the wrapper's device
-    work: the kernel and the F cumsum it computes first."""
+    work: the kernels and the F cumsum it computes first.  With ``chunks``
+    > 1 (bf16 only) the scratch cap is lowered for this case until the
+    wrapper runs at least that many query-row chunks, and the output must
+    equal the one-chunk run's bit for bit."""
     g = torch.Generator(device=dev).manual_seed(B * S + H + D)
     q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(getattr(torch, dt))
                for _ in range(3))
@@ -304,9 +308,22 @@ def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates):
     if model_gates:
         ig = ig * 0.1 - 10.0
         fg = fg * 0.1 + torch.linspace(3.0, 6.0, H, device=dev)
-    out = mmod.mlstm(q, k, v, ig, fg)
-    exp = mmod.mlstm_plain(q, k, v, ig, fg)
-    torch.cuda.synchronize()
+    whole = mmod.mlstm(q, k, v, ig, fg) if chunks > 1 else None
+    cap = mmod.SCRATCH_CAP_BYTES
+    while len(mmod.plan_chunks(B * H, S, cap)) < chunks:
+        cap //= 2
+    chunks = len(mmod.plan_chunks(B * H, S, cap))
+    default_cap, mmod.SCRATCH_CAP_BYTES = mmod.SCRATCH_CAP_BYTES, cap
+    try:
+        out = mmod.mlstm(q, k, v, ig, fg)
+        exp = mmod.mlstm_plain(q, k, v, ig, fg)
+        torch.cuda.synchronize()
+        check(whole is None or torch.equal(out, whole),
+              f"mlstm {name}: {chunks} query-row chunks differ from one")
+        kernel_ms = time_ms(torch, lambda: mmod.mlstm(q, k, v, ig, fg), 20, flush)
+        wrapper_ms = call_ms(torch, lambda: mmod.mlstm(q, k, v, ig, fg))
+    finally:
+        mmod.SCRATCH_CAP_BYTES = default_cap
     if dt == "float32":
         err_t = (out - exp).abs()
         ratio = (err_t / (MLSTM_F32_TOL["atol"] + MLSTM_F32_TOL["rtol"] * exp.abs())).max().item()
@@ -322,9 +339,9 @@ def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates):
     row = {
         "phase": "kernel", "kernel": "mlstm", "case": name,
         "B": B, "S": S, "H": H, "D": D, "dtype": dt, "model_gates": model_gates,
+        "route": mmod.ROUTES[q.dtype], "chunks": chunks,
         "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
-        "kernel_ms": time_ms(torch, lambda: mmod.mlstm(q, k, v, ig, fg), 20, flush),
-        "call_ms": call_ms(torch, lambda: mmod.mlstm(q, k, v, ig, fg)),
+        "kernel_ms": kernel_ms, "call_ms": wrapper_ms,
         "plain_ms": time_ms(torch, lambda: mmod.mlstm_plain(q, k, v, ig, fg), 5, flush),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call computes the mLSTM cell
@@ -336,13 +353,18 @@ def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates):
 
 def phase_mlstm(torch, mmod, dev):
     """The mLSTM cases: xlstm-1.3b's serving shapes (H=4, D=1024, bf16)
-    first, then a long stateless forward and ragged fp32 cases."""
+    first, then a long stateless forward, the JAX test's gates at a head
+    dim that is not a multiple of 128, runs split into query-row chunks by
+    a lowered scratch cap, and ragged fp32 cases."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for case in (
         ("serve-300", 1, 300, 4, 1024, "bfloat16", True),
         ("serve-16", 1, 16, 4, 1024, "bfloat16", True),
         ("forward-2x2048", 2, 2048, 4, 1024, "bfloat16", True),
+        ("jax-gates-77-d192", 2, 77, 3, 192, "bfloat16", False),
+        ("chunked-300", 1, 300, 4, 1024, "bfloat16", True, 3),
+        ("chunked-2x2048", 2, 2048, 4, 1024, "bfloat16", True, 4),
         ("s1-f32-d64", 2, 1, 4, 64, "float32", False),
         ("s17-f32-d64", 2, 17, 4, 64, "float32", False),
         ("s1000-f32-d64", 2, 1000, 4, 64, "float32", False),
@@ -402,6 +424,8 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     f("softcap50-512", 4, 512, 512, 8, 4, 128, "bfloat16", cap=50.0)
     f("qoffset435-77x512", 4, 77, 512, 8, 4, 128, "bfloat16", q_offset=435)
     f("full-512-f32", 4, 512, 512, 8, 4, 128, "float32", causal=False)
+    f("d32-300", 1, 300, 300, 16, 1, 32, "bfloat16")
+    f("group8-300", 1, 300, 300, 4, 8, 128, "bfloat16")
     del flush
     return rows
 
@@ -442,6 +466,8 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
     wrappers = port["wrappers"]
     for fn in wrappers.values():
         fn.launches = 0
+        for r in getattr(fn, "route_launches", {}):
+            fn.route_launches[r] = 0
     t0 = time.perf_counter()
     sender = threading.Thread(target=client, name="chip-smoke-client")
     sender.start()
@@ -451,6 +477,8 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
     sender.join(timeout=60)
     check(not sender.is_alive(), "client thread did not finish")
     launches = {name: wrappers[name].launches for name in kernels}
+    routes = {name: dict(wrappers[name].route_launches) for name in kernels
+              if hasattr(wrappers[name], "route_launches")}
 
     res = rp.get_results(store, ids, timeout_s=10)
     bodies = store.get_many([rp.req_key(r) for r in ids], missing="error")
@@ -465,7 +493,7 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
         "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
         "decode_steps": stats["decode_steps"], "prefill_groups": stats["prefill_groups"],
         "mid_batch_admissions": stats["mid_batch_admissions"],
-        "launches": launches, "card": card,
+        "launches": launches, "route_launches": routes, "card": card,
     }
     emit(row)
     check(stats["served"] == len(ids) and len(res) == len(ids), "not every request was served")
@@ -478,6 +506,9 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
     check(stats["mid_batch_admissions"] > 0, "no request was admitted mid-batch")
     for name, n in launches.items():
         check(n > 0, f"{name} kernel never launched on the {arch} serving path")
+    for name, by_route in routes.items():  # bf16 serving runs the tensor-core kernels
+        check(by_route["mma"] == launches[name],
+              f"{name}: {by_route} of {launches[name]} launches on the tensor-core route")
     weight_bytes = sum(t.numel() * t.element_size() for t in port["tree_flatten"](params)[0])
     # a recurrent family reads and writes its whole state every step
     state_bytes = 0

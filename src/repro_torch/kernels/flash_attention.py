@@ -7,9 +7,12 @@ file says what bounds it on the H100 and how the design answers.
 
 :func:`flash_attention` dispatches on the tensor's device: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel, anything the kernel
-does not take raises.  There is no fallback.  ``flash_attention.launches``
-counts kernel launches.  Any Sq/Sk is taken (ragged tails are masked);
-Dv must equal D.
+does not take raises.  There is no fallback.  The kernel library holds two
+kernels and picks by dtype (:data:`ROUTES`): bf16 runs the tensor-core
+kernel (the serving path), fp32 the scalar one (held to the fp32 bar).
+``flash_attention.launches`` counts kernel launches, and
+``flash_attention.route_launches`` splits them by route.  Any Sq/Sk is
+taken (ragged tails are masked); Dv must equal D.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .ref import mha_reference as flash_attention_plain
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "scalar", torch.bfloat16: "mma"}  # the kernel each dtype runs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,7 +104,9 @@ def flash_attention(
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.route_launches[ROUTES[q.dtype]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"scalar": 0, "mma": 0}

@@ -10,8 +10,15 @@ says what bounds it on the H100 and how the design answers.
 and without the block sizes (the kernel's tiles are its own).  It
 dispatches on the tensor's device: a CPU tensor goes to
 :func:`mlstm_plain`, a CUDA tensor to the kernel, anything the kernel does
-not take raises.  There is no fallback.  ``mlstm.launches`` counts kernel
-launches.  Any S is taken: the kernel masks the ragged tail itself.
+not take raises.  There is no fallback.  The kernel library holds two
+routes, picked by dtype (:data:`ROUTES`): bf16 (the serving path) runs the
+two-pass tensor-core kernels, fp32 the scalar kernel (held to the JAX
+package's fp32 bar).  The bf16 route forms the weights W once into a
+scratch buffer the wrapper allocates, 4 bytes per (query, key) pair; above
+:data:`SCRATCH_CAP_BYTES` it runs query-row chunks (:func:`plan_chunks`).
+``mlstm.launches`` counts calls that launched the kernels (one per call,
+whatever the number of chunks), ``mlstm.route_launches`` splits them by
+route.  Any S is taken: the kernels mask the ragged tail themselves.
 
 Both sides get the forget-gate cumsum ``F = cumsum(log sigmoid f)`` from
 :func:`gate_cumsum`, as the Pallas wrapper computes it outside its kernel,
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,26 +41,64 @@ from .ref import mlstm_reference
 NEG_INF = -1e30  # the Pallas kernels' masked-logit marker
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM_MULTIPLE = 64  # D: any multiple of the kernel's contraction chunk
+ROUTES = {torch.float32: "scalar", torch.bfloat16: "mma"}  # the kernels each dtype runs
+BLOCK = 64  # query and key rows of the bf16 kernels' tiles
+SCRATCH_CAP_BYTES = 256 << 20  # the bf16 route's W scratch, per chunk of query rows (read per call)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 6 + [_I] * 4 + [_L] * 9 + [_I, _F, _P]
+_ARGTYPES = {
+    "mlstm_launch": [_P] * 6 + [_I] * 4 + [_L] * 9 + [_I, _F, _P],
+    "mlstm_stabilizer_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "mlstm_bf16_chunk_launch": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P],
+}
 
 
-def _lib():
-    lib = _build.load("mlstm")
-    fn = lib.mlstm_launch
+def _lib(name: str):
+    fn = getattr(_build.load("mlstm"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
+def chunk_scratch_bytes(bh: int, a: int, b: int) -> int:
+    """Bytes of the bf16 route's scratch for query rows [a, b) of ``bh``
+    heads: W's hi and lo bf16 halves over rows [a, b') and keys [0, b'),
+    and the fp32 row sums of each key block, with b' = b rounded up to
+    :data:`BLOCK`."""
+    bp = -(-b // BLOCK) * BLOCK
+    return 4 * bh * (bp - a) * (bp + bp // BLOCK)
+
+
+def plan_chunks(bh: int, S: int, cap: int) -> List[Tuple[int, int]]:
+    """Query-row chunks [a, b) for the bf16 route: in order, covering
+    [0, S), every boundary but S a multiple of :data:`BLOCK`, each as long
+    as its scratch stays within ``cap`` (one chunk where it all fits).
+    Raises if one block of rows alone exceeds ``cap``."""
+    chunks, a = [], 0
+    while a < S:
+        b = min(S, a + BLOCK)
+        if chunk_scratch_bytes(bh, a, b) > cap:
+            raise ValueError(f"mlstm scratch cap {cap} B is below one block of "
+                             f"{BLOCK} rows ({chunk_scratch_bytes(bh, a, b)} B)")
+        while b < S and chunk_scratch_bytes(bh, a, min(S, b + BLOCK)) <= cap:
+            b = min(S, b + BLOCK)
+        chunks.append((a, b))
+        a = b
+    return chunks
+
+
 def gate_cumsum(f_gate: torch.Tensor) -> torch.Tensor:
-    """F = cumsum over S of log sigmoid(f), fp32 (B, S, H), contiguous."""
-    return torch.cumsum(F.logsigmoid(f_gate.float()), dim=1).contiguous()
+    """F = cumsum over S of log sigmoid(f), fp32 (B, S, H), contiguous.
+    The scan runs along the last dim of a (B, H, S) copy: on the card a
+    scan over the middle dim of a (B, S, H) tensor with few heads is an
+    order of magnitude slower (CUDA's outer-dim scan); the sums and their
+    order are the same."""
+    ls = F.logsigmoid(f_gate.float().transpose(1, 2).contiguous())
+    return torch.cumsum(ls, dim=-1).transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -159,18 +205,40 @@ def mlstm(
     ig = i_gate.float().contiguous()
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), Fc.data_ptr(), ig.data_ptr(), out.data_ptr(),
-        B, S, H, D,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        _DTYPES[q.dtype], 1.0 / math.sqrt(D), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"mlstm kernel launch failed: CUDA error {rc}")
+    strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2))
+    scale = 1.0 / math.sqrt(D)
+    route = ROUTES[q.dtype]
+    if route == "scalar":
+        _raise_on(_lib("mlstm_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), Fc.data_ptr(), ig.data_ptr(),
+            out.data_ptr(), B, S, H, D, *strides, _DTYPES[q.dtype], scale, stream,
+        ))
+    else:
+        chunks = plan_chunks(B * H, S, SCRATCH_CAP_BYTES)
+        m = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+        _raise_on(_lib("mlstm_stabilizer_launch")(
+            Fc.data_ptr(), ig.data_ptr(), m.data_ptr(), B, S, H, stream))
+        scratch = torch.empty(max(chunk_scratch_bytes(B * H, a, b) for a, b in chunks),
+                              dtype=torch.uint8, device=q.device)
+        for a, b in chunks:
+            bp = -(-b // BLOCK) * BLOCK
+            n_w = B * H * (bp - a) * bp  # bf16 elements of each of W_hi, W_lo
+            _raise_on(_lib("mlstm_bf16_chunk_launch")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), Fc.data_ptr(), ig.data_ptr(),
+                m.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 2 * n_w,
+                scratch.data_ptr() + 4 * n_w, out.data_ptr(), B, S, H, D, *strides, scale,
+                a, b, stream,
+            ))
     mlstm.launches += 1
+    mlstm.route_launches[route] += 1
     return out
 
 
+def _raise_on(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"mlstm kernel launch failed: CUDA error {rc}")
+
+
 mlstm.launches = 0
+mlstm.route_launches = {"scalar": 0, "mma": 0}

@@ -12,6 +12,9 @@ more than `tests/test_kernels.py`'s 2e-2 (both sides are fp32 results
 rounded to bf16).  The SSD's fp32 final state: atol 5e-4 + rtol 1e-3
 (`tests/test_kernels.py`'s SSD bar).  The mLSTM in fp32: atol 5e-4 + rtol
 1e-3 (`tests/test_kernels.py`'s mLSTM bar); in bf16 the rule above.
+
+bf16 inputs run the tensor-core kernels (the serving path), fp32 inputs
+the scalar ones; the attention and mLSTM tests check which route ran.
 """
 
 import numpy as np
@@ -52,6 +55,9 @@ FLASH_CASES = [
     (1, 33, 100, 8, 1, 128, True, 20, 30.0, 67),       # ragged, offset, window, cap
     (1, 300, 300, 32, 32, 64, True, None, None, 0),    # zamba2 shared block prefill
     (1, 16, 16, 32, 32, 64, True, None, None, 0),
+    (1, 304, 304, 32, 8, 128, True, None, None, 0),    # llama3-8b prefill group
+    (1, 200, 200, 16, 2, 128, True, None, None, 0),    # group 8
+    (2, 150, 150, 8, 8, 32, True, None, None, 0),      # D=32, ragged
 ]
 DECODE_CASES = [
     # S, H, K, D, window, cap
@@ -85,9 +91,12 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     rng = np.random.default_rng(sum(case[:6]))
     q, k, v = (_t(rng, s, cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
     kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=off)
-    before = fmod.flash_attention.launches
+    route = fmod.ROUTES[dtype]
+    before, before_route = fmod.flash_attention.launches, fmod.flash_attention.route_launches[route]
     out = fmod.flash_attention(q, k, v, **kw)
     assert fmod.flash_attention.launches == before + 1
+    assert fmod.flash_attention.route_launches[route] == before_route + 1
+    assert route == ("scalar" if dtype == torch.float32 else "mma")
     exp = fmod.flash_attention_plain(q, k, v, **kw)
     assert_matches_plain(out, exp)
 
@@ -239,9 +248,30 @@ MLSTM_CASES = [
 def test_mlstm_kernel_matches_plain(cuda, B, S, H, D, dtype, model_gates):
     rng = np.random.default_rng(S + D)
     inp = _mlstm_inputs(rng, B, S, H, D, cuda, dtype, model_gates)
-    before = mmod.mlstm.launches
+    route = mmod.ROUTES[dtype]
+    before, before_route = mmod.mlstm.launches, mmod.mlstm.route_launches[route]
     out = mmod.mlstm(*inp)
     assert mmod.mlstm.launches == before + 1
+    assert mmod.mlstm.route_launches[route] == before_route + 1
+    assert route == ("scalar" if dtype == torch.float32 else "mma")
+    _check_mlstm(out, mmod.mlstm_plain(*inp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,model_gates", [(300, True), (77, False), (200, False)])
+def test_mlstm_kernel_runs_query_row_chunks(cuda, monkeypatch, S, model_gates):
+    """A scratch cap below the whole W splits the bf16 route into
+    query-row chunks; the output is the same, bit for bit (each weight and
+    each row sum is formed the same way in a chunk), and matches plain."""
+    B, H, D = 2, 3, 192
+    rng = np.random.default_rng(S + 7)
+    inp = _mlstm_inputs(rng, B, S, H, D, cuda, torch.bfloat16, model_gates)
+    whole = mmod.mlstm(*inp)
+    cap = mmod.chunk_scratch_bytes(B * H, (S - 1) // 64 * 64, S)  # the last block's own
+    assert len(mmod.plan_chunks(B * H, S, cap)) > 1
+    monkeypatch.setattr(mmod, "SCRATCH_CAP_BYTES", cap)
+    out = mmod.mlstm(*inp)
+    assert torch.equal(out, whole)
     _check_mlstm(out, mmod.mlstm_plain(*inp))
 
 

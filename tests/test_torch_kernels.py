@@ -14,6 +14,8 @@ The CUDA kernels themselves are compared with the plain versions by
 `chip_smoke.py`.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -401,3 +403,123 @@ def test_mlstm_dispatch_cpu_tensors_to_plain_version():
         torch.testing.assert_close(ops.mlstm_parallel(*inp), mmod.mlstm_plain(*inp),
                                    rtol=0, atol=0)
     assert mmod.mlstm.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core routes: mLSTM scratch chunks and the hi + lo split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bh,S,cap", [
+    (4, 300, mmod.SCRATCH_CAP_BYTES),     # xlstm-1.3b serving prefill: one chunk
+    (8, 2048, mmod.SCRATCH_CAP_BYTES),    # 2 x 4 heads x 2048: 134 MB, one chunk
+    (8, 2048, 32 << 20),
+    (6, 300, 499_200),                    # the last block's own scratch
+    (6, 77, 199_680),
+    (3, 1, 1 << 20),
+    (64, 5000, 128 << 20),
+])
+def test_mlstm_chunk_plan_covers_rows_within_the_cap(bh, S, cap):
+    chunks = mmod.plan_chunks(bh, S, cap)
+    assert chunks[0][0] == 0 and chunks[-1][1] == S
+    assert all(a < b for a, b in chunks)
+    assert all(b == a2 for (_, b), (a2, _) in zip(chunks, chunks[1:]))  # in order, no gap
+    assert all(a % mmod.BLOCK == 0 for a, _ in chunks)
+    assert all(b % mmod.BLOCK == 0 for _, b in chunks[:-1])
+    assert all(mmod.chunk_scratch_bytes(bh, a, b) <= cap for a, b in chunks)
+    fits = mmod.chunk_scratch_bytes(bh, 0, S) <= cap
+    assert (len(chunks) == 1) == fits
+    # each chunk is as long as the cap allows: one more block would not fit
+    for a, b in chunks[:-1]:
+        assert mmod.chunk_scratch_bytes(bh, a, min(S, b + mmod.BLOCK)) > cap
+
+
+def test_mlstm_chunk_plan_raises_below_one_block():
+    with pytest.raises(ValueError):
+        mmod.plan_chunks(8, 2048, mmod.chunk_scratch_bytes(8, 1984, 2048) - 1)
+
+
+BF16_ULP = 2.0 ** -7
+
+
+def _bf16_rule_ratio(out, exp):
+    """Worst |out - exp| over its limit under chip_smoke.py's `compare` rule
+    for bf16 outputs: one bf16 step at the row's largest value (+1e-5),
+    capped by 2e-2 + 2e-2 |exp|."""
+    out, exp = out.float(), exp.float()
+    mag = exp.abs()
+    lim = (BF16_ULP * mag.amax(-1, keepdim=True) + 1e-5).minimum(2e-2 + 2e-2 * mag)
+    return ((out - exp).abs() / lim).max().item()
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _second_product(p, v, split):
+    """p @ v with p rounded to bf16 as the tensor cores take it: once, or as
+    hi + lo halves in two products (the kernels' design)."""
+    hi = _bf16(p)
+    return hi @ v + _bf16(p - hi) @ v if split else hi @ v
+
+
+def _mlstm_bf16_route(q, k, v, ig, fg, split):
+    """The bf16 mLSTM kernels' arithmetic in plain PyTorch: fp32 q.k of bf16
+    inputs, w in fp32, W rounded for the W V product."""
+    B, S, H, D = q.shape
+    Fh = mmod.gate_cumsum(fg).permute(0, 2, 1)
+    ih = ig.float().permute(0, 2, 1)
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    dmat = (Fh[..., :, None] - Fh[..., None, :] + ih[..., None, :]).masked_fill(~causal, -1e30)
+    m = dmat.amax(-1)
+    w = (qf @ kf.transpose(-1, -2)) / math.sqrt(D) * torch.exp(dmat - m[..., None])
+    w = w.masked_fill(~causal, 0.0)
+    den = torch.maximum(w.sum(-1).abs(), torch.exp(-m))
+    out = _second_product(w, vf, split) / den[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _flash_bf16_route(q, k, v, split):
+    """The bf16 flash kernel's arithmetic in plain PyTorch (causal, one
+    softmax pass): P rounded for the P V product."""
+    B, S, H, D = q.shape
+    group = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (x.float().permute(0, 2, 1, 3).repeat_interleave(group, 1) for x in (k, v))
+    s = (qf @ kf.transpose(-1, -2)) / math.sqrt(D)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = _second_product(p, vf, split) / p.sum(-1, keepdim=True)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,H,D,seed", [
+    (2, 77, 3, 192, 1),     # tests/test_torch_cuda.py's JAX-gate bf16 case
+    (1, 300, 4, 1024, 0),   # xlstm-1.3b's serving shape at the JAX test's gates
+])
+def test_mlstm_bf16_route_needs_the_split_second_product(B, S, H, D, seed):
+    """Pins the design: at the JAX test's gates, one bf16 rounding of W
+    misses the bf16 comparison bar against the fp32 plain version; the
+    kernels' hi + lo split meets it."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (T(_np(rng, (B, S, H, D))).bfloat16() for _ in range(3))
+    ig, fg = T(_np(rng, (B, S, H))), T(_np(rng, (B, S, H))) + 2.0
+    exp = mmod.mlstm_plain(q, k, v, ig, fg)
+    assert _bf16_rule_ratio(_mlstm_bf16_route(q, k, v, ig, fg, split=True), exp) <= 1.0
+    assert _bf16_rule_ratio(_mlstm_bf16_route(q, k, v, ig, fg, split=False), exp) > 1.0
+
+
+@pytest.mark.parametrize("S,H,K,D", [
+    (300, 8, 8, 64),     # zamba2's shared block: MHA at D=64
+    (304, 8, 2, 128),    # llama3-8b's prefill: group 4 at D=128
+])
+def test_flash_bf16_route_split_second_product_meets_the_bar(S, H, K, D):
+    """The flash kernel's hi + lo split of P meets the bf16 bar with room;
+    one bf16 rounding of P sits at its edge."""
+    rng = np.random.default_rng(S + D)
+    q = T(_np(rng, (1, S, H, D))).bfloat16()
+    k, v = (T(_np(rng, (1, S, K, D))).bfloat16() for _ in range(2))
+    exp = fmod.flash_attention_plain(q, k, v)
+    split = _bf16_rule_ratio(_flash_bf16_route(q, k, v, split=True), exp)
+    single = _bf16_rule_ratio(_flash_bf16_route(q, k, v, split=False), exp)
+    assert split <= 0.9 and split < single
