@@ -13,8 +13,10 @@ script exits non-zero:
    build time;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    (see `compare` for the tolerances; the SSD's fp32 final state and the
-   fp32 mLSTM at the JAX package's bars; bf16 flash attention and mLSTM
-   run the tensor-core kernels, fp32 the scalar ones), with its time, the plain
+   fp32 mLSTM at the JAX package's bars; bf16 flash attention, SSD and
+   mLSTM run the tensor-core kernels, fp32 the scalar ones; decode
+   attention is one cluster launch per call, with live lengths at the tile
+   edges and every cluster size among its cases), with its time, the plain
    version's, the least time the card could take (``bound_ms``) and one
    PyTorch library call's where one computes the same function
    (``F.scaled_dot_product_attention``, a yardstick the port never calls;
@@ -28,7 +30,8 @@ script exits non-zero:
    on its tensor-core route); then a profile of the decode step;
 3b. serve: zamba2-1.2b (the Mamba2 hybrid) at full width (38 layers, the
    shared attention block every 6) the same way; the ssd, flash and decode
-   counters all > 0 during this phase; then its decode-step profile;
+   counters all > 0 during this phase (flash and the SSD all on their
+   tensor-core routes); then its decode-step profile;
 3c. serve: xlstm-1.3b at full width (48 layers: 6 groups of 7 mLSTM + 1
    sLSTM, mLSTM head dim 1024) the same way; the mlstm counter > 0 during
    this phase; then its decode-step profile, whose least step time counts
@@ -177,6 +180,7 @@ def decode_case(torch, F, dmod, flush, dev, name, B, S, K, G, D, clen, q_dt, kv_
     row = {
         "phase": "kernel", "kernel": "decode_attention", "case": name,
         "B": B, "S": S, "H": H, "K": K, "D": D, "cache_len": clen,
+        "splits": dmod.cluster_splits(B, K),
         "q_dtype": q_dt, "cache_dtype": kv_dt, "window": window, "softcap": cap,
         "max_abs_err": err, "err_over_limit": ratio, "ok": bool(ok),
         "kernel_ms": time_ms(torch, lambda: dmod.decode_attention(q, kc, vc, cl, **kw), 50, flush),
@@ -417,6 +421,14 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     d("g4-f32", 8, S, 8, 4, 128, clen8, "float32", "float32")
     d("g4-window1024", 8, S, 8, 4, 128, clen8, "bfloat16", "bfloat16", window=1024)
     d("g4-softcap50", 8, S, 8, 4, 128, clen8, "bfloat16", "bfloat16", cap=50.0)
+    # live lengths at the tile edges in one batch (0, 1, 15, 16, 17, S - 1,
+    # S), a window that starts mid-tile, and a shape for each cluster size
+    # the host picks (B*K sets splits to 8, 4, 2, 1)
+    edges = [0, 1, 15, 16, 17, 299, 300, 150]
+    for K in (4, 8, 16, 64):
+        d(f"edges-k{K}-bf16", 8, 300, K, 2, 64, edges, "bfloat16", "bfloat16")
+    d("edges-window37-f32", 8, 300, 8, 4, 64, edges, "float32", "float32", window=37)
+    d("edges-window37-bf16q-f32cache", 8, 300, 8, 4, 128, edges, "bfloat16", "float32", window=37)
     for Sq in (77, 512):
         for dt in ("bfloat16", "float32"):
             f(f"causal-{Sq}-{dt}", 4, Sq, Sq, 8, 4, 128, dt)

@@ -101,8 +101,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> Optional[str]:
-    """The ``ptxas -v`` lines of the last build of ``name``, if any."""
+    """The ``ptxas -v`` lines of the last build of ``name`` (registers,
+    shared memory, stack and spills per kernel), if any."""
     log = build_dir() / f"{name}.log"
     if not log.exists():
         return None
-    return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l)
+    return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l or "spill" in l)

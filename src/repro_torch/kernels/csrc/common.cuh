@@ -41,8 +41,42 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+// E (1, 2 or 4) consecutive elements of T in one vector load, widened to
+// fp32; p must be aligned to E elements.
+template <typename T, int E>
+__device__ __forceinline__ void load_vec(const T* p, float* out);
+
+template <>
+__device__ __forceinline__ void load_vec<float, 1>(const float* p, float* out) {
+  out[0] = *p;
+}
+template <>
+__device__ __forceinline__ void load_vec<float, 2>(const float* p, float* out) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  out[0] = v.x; out[1] = v.y;
+}
+template <>
+__device__ __forceinline__ void load_vec<float, 4>(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 1>(const __nv_bfloat16* p, float* out) {
+  out[0] = __bfloat162float(*p);
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 2>(const __nv_bfloat16* p, float* out) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  out[0] = f.x; out[1] = f.y;
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 4>(const __nv_bfloat16* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -79,12 +113,6 @@ __device__ __forceinline__ void load_rows(float* sm, int pitch, const T* base,
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 

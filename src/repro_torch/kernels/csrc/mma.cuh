@@ -1,8 +1,9 @@
 // Tensor-core building blocks shared by the port's bf16 kernels (flash
-// attention, mLSTM): cp.async copies global -> shared, ldmatrix, the
-// mma.sync m16n8k16 bf16 product with fp32 accumulation, and the split of
-// an fp32 accumulator fragment into the bf16 hi + lo A-fragments of a
-// second product.  Plain CUDA, no PyTorch headers (see kernels/_build.py).
+// attention, mLSTM, the SSD scan; decode attention uses the cp.async
+// pieces): cp.async copies global -> shared, ldmatrix, the mma.sync
+// m16n8k16 bf16 product with fp32 accumulation, and the split of an fp32
+// accumulator fragment into the bf16 hi + lo A-fragments of a second
+// product.  Plain CUDA, no PyTorch headers (see kernels/_build.py).
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16" for .bf16), with g = lane / 4
 // and t = lane % 4:
@@ -94,6 +95,15 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* sm, int P, int r0, int c0) {
   const int lane = threadIdx.x & 31;
   ldsm_x4(a, sm + (r0 + (lane & 15)) * P + c0 + (lane >> 4) * 8);
+}
+
+// A-fragment of the 16 x 16 block of A = tile^T whose rows are tile columns
+// m0..m0+15 and whose k are tile rows k0..k0+15 (a tile stored k-major,
+// as x rows (s, p) for the product x^T B), through ldmatrix.trans.
+__device__ __forceinline__ void ldsm_a_kmajor(uint32_t (&a)[4], const bf16* sm, int P, int k0,
+                                              int m0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(a, sm + (k0 + (lane & 7) + ((lane >> 4) << 3)) * P + m0 + ((lane >> 3) & 1) * 8);
 }
 
 // B-fragments of two n8 blocks from a tile stored n-major (row n holds the

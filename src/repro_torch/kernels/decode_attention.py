@@ -8,8 +8,11 @@ file says what bounds it on the H100 (bytes) and how the design answers.
 :func:`decode_attention` dispatches on the tensor's device: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel, anything the kernel
 does not take raises.  There is no fallback.  ``decode_attention.launches``
-counts launches of the kernel pair: each call on the card runs the split
-kernel and then the combine kernel, and adds one.
+counts kernel launches: each call on the card is one launch of one kernel
+(a cluster of ``splits`` CTAs per (row, kv head) that merge their partial
+softmax states in distributed shared memory), and allocates only its
+output.  :func:`cluster_splits` is the host's pick of ``splits``;
+:func:`row_parts` mirrors the kernel's cut of a row's live range.
 """
 
 from __future__ import annotations
@@ -26,14 +29,15 @@ from .ref import decode_attention_reference as decode_attention_plain
 GROUPS = (1, 2, 4, 7, 8, 16)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 32  # cache rows per tile (csrc/decode_attention.cu)
-_TARGET_CTAS = 4 * 132  # four CTAs on each of the H100's 132 SMs
+GRAIN = 16  # the kernel cuts a row's live range into whole tiles of 16 rows
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable thread-block cluster sizes
+_TARGET_CTAS = 2 * 132  # two CTAs on each of the H100's 132 SMs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_I] * 5 + [_L] * 8 + [_I, _I, _F, _F, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 5 + [_I] * 5 + [_L] * 8 + [_I, _I, _F, _F, _I, _I, _P]
 
 
 def _lib():
@@ -45,13 +49,28 @@ def _lib():
     return fn
 
 
-def split_plan(B: int, K: int, S: int):
-    """(splits, chunk): cut S into splits of whole tiles so that
-    B*K*splits CTAs fill the card."""
-    n_tiles = -(-S // _TILE)
-    splits = max(1, min(-(-_TARGET_CTAS // (B * K)), n_tiles))
-    chunk = -(-n_tiles // splits) * _TILE
-    return -(-S // chunk), chunk
+def cluster_splits(B: int, K: int) -> int:
+    """CTAs per (row, kv head), one cluster: the largest cluster size that
+    keeps B*K*splits within about two CTAs per SM.  From the shapes alone:
+    reading cache_len would synchronise the stream."""
+    fit = max(1, _TARGET_CTAS // (B * K))
+    return max(c for c in CLUSTER_SIZES if c <= fit)
+
+
+def row_parts(L: int, S: int, window: Optional[int], splits: int):
+    """[(start, end)] of each CTA of a cluster: the kernel's `row_part`.  The
+    live range [lo, L) (L = min(cache_len, S), lo = max(0, L - window)) is
+    cut into ``splits`` parts of equally many whole GRAIN-row tiles, the
+    last part ragged; parts past the range are empty (start == end == L)."""
+    L = min(L, S)
+    lo = max(0, L - window) if window else 0
+    n_tiles = -(-(L - lo) // GRAIN)
+    per = -(-n_tiles // splits)
+    parts = []
+    for split in range(splits):
+        start = min(L, lo + split * per * GRAIN)
+        parts.append((start, min(L, start + per * GRAIN)))
+    return parts
 
 
 def _check(q, k_cache, v_cache, cache_len):
@@ -99,22 +118,18 @@ def decode_attention(
     _check(q, k_cache, v_cache, cache_len)
     B, H, D = q.shape
     _, S, K, _ = k_cache.shape
-    G = H // K
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    splits, chunk = split_plan(B, K, S)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    part_ml = torch.empty((B * K * splits * G * 2,), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B * K * splits * G * D,), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-        out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-        B, S, H, K, D,
+        out.data_ptr(), B, S, H, K, D,
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
-        float(scale), float(logit_cap or 0.0), int(window or 0), splits, chunk, stream,
+        float(scale), float(logit_cap or 0.0), int(window or 0), cluster_splits(B, K),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")

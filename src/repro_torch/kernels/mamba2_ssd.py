@@ -12,8 +12,13 @@ beside y, which is what Mamba2 prefill needs (the Pallas kernel starts from
 a zero state and returns y only, so the JAX serving path never reaches it).
 It dispatches on the tensor's device: a CPU tensor goes to
 :func:`ssd_plain`, a CUDA tensor to the kernel, anything the kernel does not
-take raises.  There is no fallback.  ``ssd.launches`` counts kernel
-launches.  Any S is taken: the kernel masks the ragged last chunk itself.
+take raises.  There is no fallback.  The kernel library picks by dtype
+(:data:`ROUTES`): bf16 runs the chunk-parallel tensor-core kernels (the
+serving path: one launch up to :data:`CLUSTER_CHUNKS` chunks, else three,
+with fp32 scratch for the chunks' states), fp32 the scalar kernel (held to
+the fp32 bar).  ``ssd.launches`` counts calls that launched,
+``ssd.route_launches`` splits them by route.  Any S is taken: the kernels
+mask the ragged last chunk themselves.
 """
 
 from __future__ import annotations
@@ -29,12 +34,14 @@ from . import _build
 HEAD_DIMS = (64,)  # P
 STATE_DIMS = (64,)  # N
 MAX_CHUNK = 128  # rows of the kernel's chunk tile (csrc/mamba2_ssd.cu)
+CLUSTER_CHUNKS = 8  # up to this many chunks the bf16 route is one cluster launch, no scratch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "scalar", torch.bfloat16: "mma"}  # the kernels each dtype runs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_ARGTYPES = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P]
+_ARGTYPES = [_P] * 10 + [_I] * 7 + [_L] * 12 + [_I, _P]
 
 
 def _lib():
@@ -173,12 +180,20 @@ def ssd(
     y = torch.empty((Bz, S, H, P), dtype=x.dtype, device=x.device)
     state = (torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
              if return_state else None)
+    chunk = min(chunk, S)
+    n_chunks = -(-S // chunk)
+    d_state = a_tot = None
+    if ROUTES[x.dtype] == "mma" and n_chunks > CLUSTER_CHUNKS:  # dS, then the entering states
+        d_state = torch.empty((Bz, n_chunks, H, P, N), dtype=torch.float32, device=x.device)
+        a_tot = torch.empty((Bz, n_chunks, H), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
         None if D is None else D.data_ptr(), y.data_ptr(),
         None if state is None else state.data_ptr(),
-        Bz, S, H, G, P, N, min(chunk, S),
+        None if d_state is None else d_state.data_ptr(),
+        None if a_tot is None else a_tot.data_ptr(),
+        Bz, S, H, G, P, N, chunk,
         x.stride(0), x.stride(1), x.stride(2),
         dt.stride(0), dt.stride(1), dt.stride(2),
         Bmat.stride(0), Bmat.stride(1), Bmat.stride(2),
@@ -188,7 +203,9 @@ def ssd(
     if rc != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc}")
     ssd.launches += 1
+    ssd.route_launches[ROUTES[x.dtype]] += 1
     return (y, state) if return_state else y
 
 
 ssd.launches = 0
+ssd.route_launches = {"scalar": 0, "mma": 0}

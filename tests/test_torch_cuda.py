@@ -14,7 +14,9 @@ rounded to bf16).  The SSD's fp32 final state: atol 5e-4 + rtol 1e-3
 1e-3 (`tests/test_kernels.py`'s mLSTM bar); in bf16 the rule above.
 
 bf16 inputs run the tensor-core kernels (the serving path), fp32 inputs
-the scalar ones; the attention and mLSTM tests check which route ran.
+the scalar ones; the flash, SSD and mLSTM tests check which route ran.
+Decode attention is one kernel for every dtype mix (fp32 math), one
+launch per call with a cluster of CTAs per (row, kv head).
 """
 
 import numpy as np
@@ -119,6 +121,64 @@ def test_decode_kernel_matches_plain(cuda, S, H, K, D, window, cap, q_dtype, kv_
     assert_matches_plain(out, exp)
 
 
+# (B, K): one shape for each cluster size `cluster_splits` returns (8, 4,
+# 2, 1), each with room for all the edge lengths
+CLUSTER_SHAPES = [(8, 4), (8, 8), (8, 16), (33, 8)]
+EDGE_LENS = [0, 1, 15, 16, 17]  # then S - 1 and S, then cycling
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K", CLUSTER_SHAPES)
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+])
+@pytest.mark.parametrize("window", [None, 37])  # 37: starts mid-tile
+def test_decode_kernel_live_lengths_in_every_cluster_size(cuda, B, K, q_dtype, kv_dtype, window):
+    """Live lengths 0, 1, 15, 16, 17, S - 1 and S in one batch, in each
+    cluster size the host picks: the device-side split of the live rows
+    against the plain version, for all four dtype mixes."""
+    S, G, D = 300, 4, 64
+    rng = np.random.default_rng(B * K)
+    q = _t(rng, (B, K * G, D), cuda, q_dtype)
+    kc, vc = _t(rng, (B, S, K, D), cuda, kv_dtype), _t(rng, (B, S, K, D), cuda, kv_dtype)
+    lens = (EDGE_LENS + [S - 1, S] + list(range(S, 0, -41)))[:B]
+    lens += [int(x) for x in rng.integers(0, S + 1, size=B - len(lens))]
+    clen = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = dmod.decode_attention(q, kc, vc, clen, window=window)
+    assert_matches_plain(out, dmod.decode_attention_plain(q, kc, vc, clen, window=window))
+
+
+@pytest.mark.cuda
+def test_decode_cluster_sizes_cover_every_pick(cuda):
+    assert {dmod.cluster_splits(B, K) for B, K in CLUSTER_SHAPES} == set(dmod.CLUSTER_SIZES)
+
+
+@pytest.mark.cuda
+def test_decode_call_is_one_launch_and_allocates_only_its_output(cuda):
+    """One call: one kernel on the device (no combine kernel) and one
+    allocation (the output; no per-call scratch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    B, S, K, G, D = 4, 1024, 8, 4, 128
+    q = _t(rng, (B, K * G, D), cuda, torch.bfloat16)
+    kc, vc = _t(rng, (B, S, K, D), cuda, torch.float32), _t(rng, (B, S, K, D), cuda, torch.float32)
+    clen = torch.tensor([332, 48, 305, 17], dtype=torch.int32, device=cuda)
+    dmod.decode_attention(q, kc, vc, clen)  # built and warm
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    before = dmod.decode_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = dmod.decode_attention(q, kc, vc, clen)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] - allocs == 1
+    assert dmod.decode_attention.launches == before + 1
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_kernel" in kernels[0].name, [e.name for e in kernels]
+    assert_matches_plain(out, dmod.decode_attention_plain(q, kc, vc, clen))
+
+
 @pytest.mark.cuda
 def test_decode_kernel_reads_strided_cache_slices(cuda):
     """A per-layer view of a larger cache (as the engine holds it) is read
@@ -169,10 +229,32 @@ def _check_ssd(out, exp, return_state):
 def test_ssd_kernel_matches_plain(cuda, S, G, dtype, with_d, return_state):
     rng = np.random.default_rng(S + G)
     x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 2, S, 8, G, cuda, dtype, with_d)
-    before = smod.ssd.launches
+    route = smod.ROUTES[dtype]
+    before, before_route = smod.ssd.launches, smod.ssd.route_launches[route]
     out = smod.ssd(x, dt, A, Bm, Cm, D, chunk=128, return_state=return_state)
     assert smod.ssd.launches == before + 1
+    assert smod.ssd.route_launches[route] == before_route + 1
+    assert route == ("scalar" if dtype == torch.float32 else "mma")
     exp = smod.ssd_plain(x, dt, A, Bm, Cm, D, chunk=128, return_state=return_state)
+    _check_ssd(out, exp, return_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 128, 129, 300, 2048])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("with_d,return_state", [(True, True), (False, False), (True, False)])
+def test_ssd_bf16_chunk_parallel_matches_plain(cuda, S, G, chunk, with_d, return_state):
+    """The bf16 route (chunk-parallel, tensor cores): ragged and whole
+    chunks, one chunk and many, with and without D and the final state;
+    every launch counted on the `mma` route."""
+    rng = np.random.default_rng(S + G + chunk)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 2, S, 8, G, cuda, torch.bfloat16, with_d)
+    before, before_mma = smod.ssd.launches, smod.ssd.route_launches["mma"]
+    out = smod.ssd(x, dt, A, Bm, Cm, D, chunk=chunk, return_state=return_state)
+    assert smod.ssd.launches == before + 1
+    assert smod.ssd.route_launches["mma"] == before_mma + 1
+    exp = smod.ssd_plain(x, dt, A, Bm, Cm, D, chunk=chunk, return_state=return_state)
     _check_ssd(out, exp, return_state)
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
@@ -166,10 +167,36 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     assert dmod.decode_attention.launches == 0
 
 
-def test_split_plan_covers_the_cache():
-    for B, K, S in [(4, 8, 1024), (8, 8, 4096), (1, 1, 5), (3, 2, 97), (128, 8, 256)]:
-        splits, chunk = dmod.split_plan(B, K, S)
-        assert chunk % 32 == 0 and splits * chunk >= S > (splits - 1) * chunk
+@pytest.mark.parametrize("B,K", [
+    (4, 8),      # llama3-8b's serving shape: 8 splits
+    (4, 32),     # zamba2-1.2b's shared block (MHA): 2
+    (8, 8),      # phase 2's B=8 cases: 4
+    (1, 1), (3, 2), (33, 1), (128, 8), (300, 2),
+])
+def test_decode_cluster_split_covers_the_live_rows(B, K):
+    """The host's pick of splits is a portable cluster size (the grid's x
+    dimension is one cluster) that fills about two CTAs per SM; the
+    kernel's cut of a row's live range (mirrored by `row_parts`) gives
+    each CTA whole tiles, disjoint, covering [lo, L) exactly once, for
+    every L in 0..S, with and without a window (one starting mid-tile)."""
+    splits = dmod.cluster_splits(B, K)
+    assert splits in dmod.CLUSTER_SIZES
+    target = 2 * 132
+    assert B * K * splits <= max(target, B * K)
+    assert splits == max(dmod.CLUSTER_SIZES) or B * K * splits * 2 > target
+    S = 77
+    for window in (None, 5, 40):
+        for L in range(S + 1):
+            lo = max(0, L - window) if window else 0
+            parts = dmod.row_parts(L, S, window, splits)
+            assert len(parts) == splits
+            rows = [r for a, b in parts for r in range(a, b)]
+            assert rows == list(range(lo, L))
+            sizes = [b - a for a, b in parts]
+            assert all((a - lo) % dmod.GRAIN == 0 for a, b in parts if b > a)
+            live = [n for n in sizes if n]
+            assert all(n % dmod.GRAIN == 0 for n in live[:-1])
+            assert len(set(live[:-1])) <= 1 and (not live or live[-1] <= live[0])
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +315,72 @@ def test_ssd_dispatch_cpu_tensors_to_plain_version():
     torch.testing.assert_close(y, ey, rtol=0, atol=0)
     torch.testing.assert_close(h, eh, rtol=0, atol=0)
     assert smod.ssd.launches == 0
+
+
+def _operand(v, bf16_single):
+    """An fp32 MMA operand as the bf16 route takes it: exact (None), one
+    bf16 rounding (True), or bf16 hi + lo halves (False)."""
+    if bf16_single is None:
+        return v
+    hi = v.to(torch.bfloat16).float()
+    return hi if bf16_single else hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _ssd_state_passing(x, dt, A, Bm, Cm, D, chunk, single=None):
+    """The bf16 SSD kernels' three phases in plain torch: each chunk's state
+    contribution dS_c = x^T (w o B), the state passed across chunks
+    (h_c = exp(a_tot_c) h_{c-1} + dS_c), then y per chunk from the scores,
+    the entering state and the D skip.  ``single`` None: fp32 operands;
+    else the set of products ("scores", "wB", "h") whose fp32 operand is
+    rounded to bf16 once, the others split into hi + lo."""
+    Bz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    rnd = {k: None if single is None else k in single for k in ("scores", "wB", "h")}
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    xf, dtf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)), F.pad(dt.float(), (0, 0, 0, pad))
+    Bh, Ch = (F.pad(m.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2) for m in (Bm, Cm))
+    nc = (S + pad) // chunk
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    parts = []
+    for c in range(nc):  # phase 1 (and the chunk's own scores, used in phase 3)
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, dtc, bc, cc = xf[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl]
+        a_cum = torch.cumsum(A.float() * dtc, dim=1)
+        a_tot = a_cum[:, -1]
+        w = torch.exp(a_tot[:, None] - a_cum) * dtc
+        d_state = torch.einsum("bshp,bshn->bhpn", xc, _operand(w[..., None] * bc, rnd["wB"]))
+        parts.append((xc, dtc, cc, bc, a_cum, a_tot, d_state))
+    h = torch.zeros(Bz, H, P, N)
+    ys = []
+    for xc, dtc, cc, bc, a_cum, a_tot, d_state in parts:  # phases 2 and 3
+        seg = a_cum[:, :, None, :] - a_cum[:, None, :, :]
+        L = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        scores = torch.einsum("bthn,bshn->btsh", cc, bc) * L * dtc[:, None]
+        y = torch.einsum("btsh,bshp->bthp", _operand(scores, rnd["scores"]), xc)
+        y = y + torch.exp(a_cum)[..., None] * torch.einsum("bthn,bhpn->bthp", cc,
+                                                           _operand(h, rnd["h"]))
+        ys.append(y)
+        h = h * torch.exp(a_tot)[..., None, None] + d_state
+    y = torch.cat(ys, 1)[:, :S]
+    if D is not None:
+        y = y + x.float() * D.float()[None, None, :, None]
+    return y, h
+
+
+@pytest.mark.parametrize("S", [16, 128, 129, 300])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_ssd_state_passing_matches_plain(S, G, chunk):
+    """The chunk-parallel decomposition the bf16 kernels run (per-chunk
+    dS, state passing, the inter-chunk term) is the chunked scan: y and the
+    final state equal `ssd_plain`'s at the SSD bar."""
+    x, dt, A, Bm, Cm, D = _t(_ssd_inputs(1, S, 4, 16, G, 16, S + G + chunk))
+    y, h = _ssd_state_passing(x, dt, A, Bm, Cm, D, chunk)
+    ey, eh = smod.ssd_plain(x, dt, A, Bm, Cm, D, chunk=chunk, return_state=True)
+    torch.testing.assert_close(y, ey, **SSD_TOL)
+    torch.testing.assert_close(h, eh, **SSD_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -523,3 +616,28 @@ def test_flash_bf16_route_split_second_product_meets_the_bar(S, H, K, D):
     split = _bf16_rule_ratio(_flash_bf16_route(q, k, v, split=True), exp)
     single = _bf16_rule_ratio(_flash_bf16_route(q, k, v, split=False), exp)
     assert split <= 0.9 and split < single
+
+
+@pytest.mark.parametrize("product", ["scores", "wB", "h"])
+def test_ssd_bf16_route_needs_the_split_of_each_product(product):
+    """Pins the bf16 SSD kernels' design at zamba2-1.2b's serving shape
+    (1 x 300, H = 64, G = 2, P = N = 64, chunk 128): with every fp32
+    operand split into bf16 hi + lo, y meets `compare`'s bf16 bar and the
+    fp32 final state the SSD state bar with room; one bf16 rounding of any
+    one of the three (the scores before scores.x, w o B before x^T (w o B),
+    the entering state before C h^T) misses a bar -- y for all three, the
+    state too for w o B."""
+    x, dt, A, Bm, Cm, D = _t(_ssd_inputs(1, 300, 64, 64, 2, 64, 0))
+    x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    ey, eh = smod.ssd_plain(x, dt, A, Bm, Cm, D, chunk=128, return_state=True)
+
+    def ratios(single):
+        y, h = _ssd_state_passing(x, dt, A, Bm, Cm, D, 128, single=single)
+        state = ((h - eh).abs() / (SSD_TOL["atol"] + SSD_TOL["rtol"] * eh.abs())).max().item()
+        return _bf16_rule_ratio(y.to(torch.bfloat16), ey), state
+
+    y_split, state_split = ratios(set())
+    assert y_split <= 1.0 and state_split <= 0.1
+    y_single, state_single = ratios({product})
+    assert y_single > 1.0
+    assert (state_single > 1.0) == (product == "wB")
