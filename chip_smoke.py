@@ -21,7 +21,7 @@ script exits non-zero:
    PyTorch library call's where one computes the same function
    (``F.scaled_dot_product_attention``, a yardstick the port never calls;
    none for the SSD scan and the mLSTM), at the serving shapes of phases
-   3, 3b and 3c first;
+   3, 3b, 3c and 3d first;
 3. serve: llama3-8b at full width (32 layers, random weights from a seed)
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
@@ -36,6 +36,16 @@ script exits non-zero:
    sLSTM, mLSTM head dim 1024) the same way; the mlstm counter > 0 during
    this phase; then its decode-step profile, whose least step time counts
    the recurrent state read and written beside the weights;
+3d. serve: olmoe-1b-7b at full width (16 MoE layers of 64 experts, top-8,
+   MHA 16 x 128 with qk-norm) the same way; the decode and flash counters
+   > 0 during this phase (flash all on its tensor-core route); then its
+   profiles;
+3e. serve: deepseek-v3-671b at full width (d_model 7168, 128 heads, MLA,
+   256 experts top-8 and 1 shared, vocab 129280) cut in depth to
+   ``DEEPSEEK_SERVE_LAYERS`` = 4 (the 3 dense MLA layers and 1 MoE layer;
+   the MTP head initialised, unused by serving), the same way; both
+   attention counters stay at 0 (MLA's Dv != D takes plain PyTorch by
+   shape); then its profiles;
 4. consistency: llama3-8b width at 2 layers in fp32 (TF32 off), prefill and
    4 decode steps on the card (kernels) against the same weights on the CPU
    (plain versions): identical greedy tokens, logits within 2e-3;
@@ -44,7 +54,14 @@ script exits non-zero:
    ``forward`` over the whole sequence on both devices;
 4c. the same for xlstm width at 8 layers (one group of 7 mLSTM + 1 sLSTM),
    prompts of 200 and of 137 tokens, each prefilled alone at its exact
-   length (as the engine groups them), then ``forward``.
+   length (as the engine groups them), then ``forward``;
+4d. the same for olmoe width at 2 MoE layers (all 64 experts), then
+   ``forward``; the router's scores on both devices beside the smallest
+   margin between the k-th and (k+1)-th score;
+4e. the same for deepseek width at 2 layers (one dense MLA layer, one MoE
+   layer cut to ``DEEPSEEK_CHECK_EXPERTS`` = 16 routed experts, top-8 and
+   1 shared kept), then ``forward`` with the MTP head's logits (also held
+   within 2e-3).
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving phase, error and times at the
@@ -73,6 +90,8 @@ MLSTM_SRC = "src/repro_torch/kernels/csrc/mlstm.cu"
 SSD_STATE_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:167
 MLSTM_F32_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:242
 SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
+DEEPSEEK_SERVE_LAYERS = 4  # phase 3e: the 3 dense MLA layers + 1 MoE layer (31.6 GB in bf16)
+DEEPSEEK_CHECK_EXPERTS = 16  # phase 4e: routed experts of its MoE layer (fp32 on both devices)
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
 
 
@@ -406,6 +425,12 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     d("zamba2-serve", 4, 1024, 32, 1, 64, [332, 48, 305, 17], "bfloat16", "float32")
     f("zamba2-serve-300", 1, 300, 300, 32, 1, 64, "bfloat16")
     f("zamba2-serve-16", 1, 16, 16, 32, 1, 64, "bfloat16")
+    # the serving shapes of phase 3d: olmoe-1b-7b is MHA (group 1) at
+    # head_dim 128; prefill groups right-padded to a multiple of 16 (304),
+    # and one ragged length
+    d("olmoe-serve", 4, 1024, 16, 1, 128, [332, 48, 305, 17], "bfloat16", "float32")
+    f("olmoe-serve-304", 1, 304, 304, 16, 1, 128, "bfloat16")
+    f("olmoe-ragged-77", 1, 77, 77, 16, 1, 128, "bfloat16")
     m("serve-300", 1, 300, 64, 2, "bfloat16")
     m("serve-16", 1, 16, 64, 2, "bfloat16")
     m("forward-4x2048", 4, 2048, 64, 2, "bfloat16", return_state=False)
@@ -443,13 +468,15 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: llama3-8b at full width behind the continuous-batching engine
+# phase 3: each family at full width behind the continuous-batching engine
 # ---------------------------------------------------------------------------
 
-def phase_serve(torch, np, port, dev, card, arch, kernels):
-    """Serve ``arch`` at full width; ``kernels`` names the wrappers of its
-    path, each of which must launch during this phase."""
-    cfg = port["CONFIGS"][arch]
+def phase_serve(torch, np, port, dev, card, cfg, kernels, idle=()):
+    """Serve ``cfg`` (full width; depth as given); ``kernels`` names the
+    wrappers of its path, each of which must launch during this phase, and
+    ``idle`` the wrappers that must not (a path that takes plain PyTorch
+    by shape)."""
+    arch = cfg.name
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = port["init_params"](cfg, gen, dev)
@@ -488,7 +515,7 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
     wall = time.perf_counter() - t0
     sender.join(timeout=60)
     check(not sender.is_alive(), "client thread did not finish")
-    launches = {name: wrappers[name].launches for name in kernels}
+    launches = {name: wrappers[name].launches for name in (*kernels, *idle)}
     routes = {name: dict(wrappers[name].route_launches) for name in kernels
               if hasattr(wrappers[name], "route_launches")}
 
@@ -516,12 +543,18 @@ def phase_serve(torch, np, port, dev, card, arch, kernels):
         check(len(markers[r]) == 1 and markers[r][0]["done"] == 32,
               f"{r}: published {len(markers[r])} times")
     check(stats["mid_batch_admissions"] > 0, "no request was admitted mid-batch")
-    for name, n in launches.items():
-        check(n > 0, f"{name} kernel never launched on the {arch} serving path")
+    for name in kernels:
+        check(launches[name] > 0, f"{name} kernel never launched on the {arch} serving path")
+    for name in idle:
+        check(launches[name] == 0, f"{name} kernel launched {launches[name]} times on the "
+                                   f"{arch} serving path, which takes plain PyTorch by shape")
     for name, by_route in routes.items():  # bf16 serving runs the tensor-core kernels
         check(by_route["mma"] == launches[name],
               f"{name}: {by_route} of {launches[name]} launches on the tensor-core route")
-    weight_bytes = sum(t.numel() * t.element_size() for t in port["tree_flatten"](params)[0])
+    # the weights a decode step reads: all but the MTP head, which only
+    # `forward` runs
+    weight_bytes = sum(t.numel() * t.element_size() for t in port["tree_flatten"](
+        {k: v for k, v in params.items() if k != "mtp"})[0])
     # a recurrent family reads and writes its whole state every step
     state_bytes = 0
     if cfg.family == "ssm":
@@ -559,6 +592,7 @@ def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
         "phase": "serve_profile", "arch": cfg.name, "live_slots": 4, "steps": n_steps,
         "profiler_saw_device": bool(ev),
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
+        "device_launches_per_step": sum(e.count for e in ev) / n_steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
         "state_bound_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
@@ -570,7 +604,8 @@ def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
 def device_summary(prof, n):
     """(device events, device-busy ms per run, the 8 largest [name, ms per
     run, launches per run]) of a profile over ``n`` runs.  Device-side
-    events only: an operator's entry repeats its kernels' time."""
+    events only: an operator's entry repeats its kernels' time.  The sum
+    of the events' counts over ``n`` is the device launches per run."""
     from torch.autograd import DeviceType
 
     ev = [e for e in prof.key_averages()
@@ -606,6 +641,7 @@ def profile_prefill(torch, port, params, cfg, dev, n_tok=300):
     row = {
         "phase": "prefill_profile", "arch": cfg.name, "prompt_len": n_tok,
         "profiler_saw_device": bool(ev), "prefill_ms": prefill_ms, "device_busy_ms": busy_ms,
+        "device_launches": sum(e.count for e in ev),
         "device_idle_share": max(0.0, 1.0 - busy_ms / prefill_ms), "top_device_ms": top,
     }
     if cfg.family == "ssm":
@@ -624,13 +660,51 @@ def profile_prefill(torch, port, params, cfg, dev, n_tok=300):
 # phase 4: the card against the CPU at full width, few layers, fp32
 # ---------------------------------------------------------------------------
 
-def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False):
+def route_recorder(torch, moe):
+    """Wrap ``moe._route`` to record, per call, each token's selection
+    scores (what top-k picks from: softmax probabilities, or sigmoid
+    scores plus the bias with MLA) and the picked experts, on the CPU.
+    Returns (records, undo)."""
+    records, orig = [], moe._route
+
+    def rec(p, tokens, cfg):
+        gates, idx, aux = orig(p, tokens, cfg)
+        logits = tokens.float() @ p["router"]
+        sel = (torch.sigmoid(logits) + p["router_bias"] if cfg.mla is not None
+               else torch.softmax(logits, dim=-1))
+        records.append((sel.cpu(), idx.cpu()))
+        return gates, idx, aux
+
+    moe._route = rec
+    return records, lambda: setattr(moe, "_route", orig)
+
+
+def router_summary(torch, rec_g, rec_c, k):
+    """The router error between the devices (max |score difference|), the
+    calls whose picked experts differ, and the smallest margin between the
+    k-th and (k+1)-th selection score on the CPU: a margin below the error
+    is a near-tie the devices may break apart."""
+    check(len(rec_g) == len(rec_c), f"router calls {len(rec_g)} on cuda, {len(rec_c)} on cpu")
+    err, differ, margin = 0.0, 0, float("inf")
+    for (sg, ig), (sc, ic) in zip(rec_g, rec_c):
+        err = max(err, (sg - sc).abs().max().item())
+        differ += int(not torch.equal(ig, ic))
+        top = sc.topk(k + 1, dim=-1).values
+        margin = min(margin, (top[:, k - 1] - top[:, k]).min().item())
+    return {"router_calls": len(rec_c), "router_max_abs_err": err,
+            "router_calls_with_other_experts": differ, "router_min_topk_margin": margin}
+
+
+def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False, **changes):
     """Prefill one prompt per entry of ``lens`` (right-padded to the
     longest), then 4 greedy decode steps, on the card and on the CPU from
     the same weights; with ``with_forward`` also ``forward`` over prompt +
-    decoded tokens (all rows one length)."""
+    decoded tokens (all rows one length), and its MTP logits where the
+    model has the head.  ``changes`` replace fields of the config (a MoE
+    cut).  For MoE also the router's scores on both devices."""
     cfg = dataclasses.replace(
-        port["CONFIGS"][arch], n_layers=n_layers, dtype="float32", param_dtype="float32"
+        port["CONFIGS"][arch], n_layers=n_layers, dtype="float32", param_dtype="float32",
+        **changes,
     )
     gen = torch.Generator(device=dev).manual_seed(1)
     p_gpu = port["init_params"](cfg, gen, dev)
@@ -639,42 +713,59 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
     lens = torch.tensor(lens)
     B, L = len(lens), int(lens.max())
     toks = torch.randint(0, cfg.vocab_size, (B, L), generator=torch.Generator().manual_seed(2))
-    results = {}
+    results, routes = {}, {}
     for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
-        cache = init_cache(cfg, B, L + 16, torch.float32, d)
-        logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d)}, cache, all_logits=True)
-        last = logits[torch.arange(B, device=d), (lens - 1).to(d)]
-        steps, tok, clen = [last.cpu()], last.argmax(-1), lens.to(d).to(torch.int32)
-        picked = [tok.cpu()]
-        for _ in range(4):
-            lg, cache = decode_step(p, cfg, tok[:, None], cache, clen)
-            clen = clen + 1
-            tok = lg[:, 0].argmax(-1)
-            steps.append(lg[:, 0].cpu())
-            picked.append(tok.cpu())
-        fwd = None
-        if with_forward:  # the fed tokens: the prompt and the first 4 picks
-            seq = torch.cat([toks, torch.stack(picked[:4], 1)], 1).to(d)
-            fwd = port["forward"](p, cfg, {"tokens": seq}).cpu()
-        results[name] = (torch.stack(steps), torch.stack(picked), fwd)
-    (lg_g, tk_g, fw_g), (lg_c, tk_c, fw_c) = results["cuda"], results["cpu"]
+        records, undo = route_recorder(torch, port["moe"])
+        try:
+            cache = init_cache(cfg, B, L + 16, torch.float32, d)
+            logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d)}, cache, all_logits=True)
+            last = logits[torch.arange(B, device=d), (lens - 1).to(d)]
+            steps, tok, clen = [last.cpu()], last.argmax(-1), lens.to(d).to(torch.int32)
+            picked = [tok.cpu()]
+            for _ in range(4):
+                lg, cache = decode_step(p, cfg, tok[:, None], cache, clen)
+                clen = clen + 1
+                tok = lg[:, 0].argmax(-1)
+                steps.append(lg[:, 0].cpu())
+                picked.append(tok.cpu())
+            fwd = mtp = None
+            if with_forward:  # the fed tokens: the prompt and the first 4 picks
+                seq = torch.cat([toks, torch.stack(picked[:4], 1)], 1).to(d)
+                fwd, _, extras = port["forward"](p, cfg, {"tokens": seq})
+                fwd = fwd.cpu()
+                mtp = extras["mtp_logits"].cpu() if "mtp_logits" in extras else None
+        finally:
+            undo()
+        results[name] = (torch.stack(steps), torch.stack(picked), fwd, mtp)
+        routes[name] = records
+    (lg_g, tk_g, fw_g, mtp_g), (lg_c, tk_c, fw_c, mtp_c) = results["cuda"], results["cpu"]
+    del p_gpu
+    torch.cuda.empty_cache()
     err = (lg_g - lg_c).abs().max().item()
     same = bool(torch.equal(tk_g, tk_c))
     close = bool(torch.allclose(lg_g, lg_c, atol=2e-3, rtol=1e-3))
-    fwd_err = None
+    fwd_err = mtp_err = None
     if with_forward:
         fwd_err = (fw_g - fw_c).abs().max().item()
         close = close and bool(torch.allclose(fw_g, fw_c, atol=2e-3, rtol=1e-3))
-    emit({
+    if cfg.mtp_depth and with_forward:
+        mtp_err = (mtp_g - mtp_c).abs().max().item()
+        close = close and bool(torch.allclose(mtp_g, mtp_c, atol=2e-3, rtol=1e-3))
+    row = {
         "phase": "consistency", "arch": cfg.name, "n_layers": n_layers, "dtype": "float32",
+        "changes": {k: str(v) for k, v in changes.items()},
         "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt_lens": lens.tolist(),
         "decode_steps": 4,
         "greedy_tokens_cuda": tk_g.T.tolist(), "greedy_tokens_cpu": tk_c.T.tolist(),
         "tokens_identical": same, "max_abs_logit_err": err,
-        "forward_max_abs_logit_err": fwd_err, "tol": 2e-3, "ok": same and close,
-    })
+        "forward_max_abs_logit_err": fwd_err, "mtp_max_abs_logit_err": mtp_err,
+        "tol": 2e-3, "ok": same and close,
+    }
+    if cfg.family == "moe":
+        row.update(router_summary(torch, routes["cuda"], routes["cpu"], cfg.moe.top_k))
+    emit(row)
     check(same, f"{arch}: greedy tokens differ between cuda and cpu")
-    check(close, f"{arch}: logits differ by {err} (forward {fwd_err}) > 2e-3")
+    check(close, f"{arch}: logits differ by {err} (forward {fwd_err}, mtp {mtp_err}) > 2e-3")
 
 
 def main() -> int:
@@ -693,7 +784,7 @@ def main() -> int:
     from repro_torch.kernels import mamba2_ssd as smod
     from repro_torch.kernels import mlstm as mmod
     from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
-    from repro_torch.models import xlstm
+    from repro_torch.models import moe, xlstm
     from repro_torch.serve import ContinuousEngine, ServeConfig
     from repro_torch.serve import request_plane as rp
     from repro_torch.storage import KVStore, ObjectStore
@@ -706,7 +797,7 @@ def main() -> int:
                   "flash_attention": fmod.flash_attention, "ssd": smod.ssd,
                   "mlstm": mmod.mlstm},
         ServeConfig=ServeConfig, rp=rp, KVStore=KVStore, ObjectStore=ObjectStore,
-        tree_flatten=tree_flatten, tree_map=tree_map, xlstm=xlstm,
+        tree_flatten=tree_flatten, tree_map=tree_map, xlstm=xlstm, moe=moe,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -733,17 +824,27 @@ def main() -> int:
 
     rows = phase_kernels(torch, dmod, fmod, smod, dev)
     rows["mlstm"] = phase_mlstm(torch, mmod, dev)
-    launches = {
-        "llama3-8b": phase_serve(torch, np, port, dev, card, "llama3-8b",
-                                 ("decode_attention", "flash_attention")),
-        "zamba2-1.2b": phase_serve(torch, np, port, dev, card, "zamba2-1.2b",
-                                   ("decode_attention", "flash_attention", "ssd")),
-        "xlstm-1.3b": phase_serve(torch, np, port, dev, card, "xlstm-1.3b", ("mlstm",)),
-    }
+    attention = ("decode_attention", "flash_attention")
+    deepseek = dataclasses.replace(CONFIGS["deepseek-v3-671b"], n_layers=DEEPSEEK_SERVE_LAYERS)
+    launches = {}
+    for cfg, kernels, idle in (
+        (CONFIGS["llama3-8b"], attention, ()),
+        (CONFIGS["zamba2-1.2b"], (*attention, "ssd"), ()),
+        (CONFIGS["xlstm-1.3b"], ("mlstm",), ()),
+        (CONFIGS["olmoe-1b-7b"], attention, ()),
+        (deepseek, (), attention),  # MLA: Dv != D takes plain PyTorch by shape
+    ):
+        launches[cfg.name] = phase_serve(torch, np, port, dev, card, cfg, kernels, idle)
     phase_consistency(torch, port, dev, "llama3-8b", 2, [48, 37])
     phase_consistency(torch, port, dev, "zamba2-1.2b", 7, [200, 200], with_forward=True)
     for n in (200, 137):  # exact-length prefill, as the engine groups xlstm prompts
         phase_consistency(torch, port, dev, "xlstm-1.3b", 8, [n], with_forward=True)
+    phase_consistency(torch, port, dev, "olmoe-1b-7b", 2, [48, 37], with_forward=True)
+    ds_moe = CONFIGS["deepseek-v3-671b"].moe
+    phase_consistency(  # one dense MLA layer + one MoE layer of 16 experts (top-8, 1 shared)
+        torch, port, dev, "deepseek-v3-671b", 2, [48, 37], with_forward=True,
+        moe=dataclasses.replace(ds_moe, num_experts=DEEPSEEK_CHECK_EXPERTS, num_dense_layers=1),
+    )
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
@@ -767,8 +868,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **times(rows[name][0]),
         }
-        if name in ("decode_attention", "flash_attention"):  # at zamba2's serving shape too
-            entry["zamba2"] = times(next(r for r in rows[name] if r["case"].startswith("zamba2")))
+        if name in ("decode_attention", "flash_attention"):  # at zamba2's and olmoe's shapes too
+            for arch in ("zamba2", "olmoe"):
+                entry[arch] = times(next(r for r in rows[name] if r["case"].startswith(arch)))
         kernels.append(entry)
     print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     emit({"kernels": kernels})

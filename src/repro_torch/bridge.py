@@ -8,7 +8,11 @@ hybrid stage stacks its Mamba layers as ``super`` (n_super, per, ...) and
 block is one dict, converted once (every super block reuses it).  The
 xLSTM stage stacks its mLSTM blocks as ``mlstm`` (n_groups, per - 1, ...)
 and its sLSTM blocks as ``slstm`` (n_groups, ...); the port keeps one
-``{"m": [...], "s": ...}`` dict per group.
+``{"m": [...], "s": ...}`` dict per group.  The moe family's two stages,
+``dense_prefix`` and ``decoder``, are stacked as (n, 1, ...) like a dense
+decoder (experts (n, 1, E, D, F), ``router_bias`` and ``shared`` inside
+each layer's ``moe``); its ``mtp`` head (``proj``, ``norm`` and one
+unstacked ``block`` layer) converts leaf by leaf.
 Weight layouts are the same on both sides (`wq (D, H, hd)`, `wo (H, hd,
 D)`, `w_gate (D, F)`), so no leaf is transposed.
 
@@ -27,7 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import PORTED
 from repro_torch.models.transformer import hybrid_shape, layer_period, xlstm_groups
-from repro_torch.util import tree_map
+from repro_torch.util import tree_flatten, tree_map
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -38,12 +42,13 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """Convert a dense, hybrid or ssm model's JAX parameter tree (leaves as
-    numpy arrays)."""
+    """Convert a dense, moe, hybrid or ssm model's JAX parameter tree
+    (leaves as numpy arrays)."""
     if cfg.family not in PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     conv = lambda a: tensor_from_numpy(a, device)  # noqa: E731
-    out = {k: tree_map(conv, v) for k, v in tree.items() if k != "decoder"}
+    stacked = ("decoder", "dense_prefix")
+    out = {k: tree_map(conv, v) for k, v in tree.items() if k not in stacked}
     dec = tree["decoder"]
     if cfg.family == "hybrid":
         per, n_super, n_tail = hybrid_shape(cfg)
@@ -63,10 +68,12 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dic
         ]
         return out
     period = layer_period(cfg)
-    outer = cfg.n_layers // period
-    out["decoder"] = [
-        tree_map(lambda a, o=o, i=i: conv(a[o, i]), dec)
-        for o in range(outer)
-        for i in range(period)
-    ]
+    for name in stacked:
+        if name in tree:
+            outer = tree_flatten(tree[name])[0][0].shape[0]
+            out[name] = [
+                tree_map(lambda a, o=o, i=i: conv(a[o, i]), tree[name])
+                for o in range(outer)
+                for i in range(period)
+            ]
     return out

@@ -8,8 +8,12 @@ on any device call ``ref`` (or the kernel modules' ``*_plain``) directly.
 ``ssd_decode_step`` and ``mlstm_decode_step`` are plain PyTorch on every
 device: the JAX package has no kernel for them either.
 
-Not ported yet: the chunked online-softmax path for Dv != D (MLA; see
-ROADMAP.md).
+Attention whose value head dim differs from the query's (MLA: Dqk 192,
+Dv 128) is sent to plain PyTorch by shape on every device, as the JAX
+dispatch sends it to its jnp paths: the naive reference up to Sq * Sk <=
+256^2, the chunked online-softmax scan above.  This is a rule on the
+shape, not a fallback: the CUDA kernel takes Dv == D only and raises
+otherwise.
 """
 
 from __future__ import annotations
@@ -20,15 +24,97 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import ref
 from .decode_attention import decode_attention
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention as flash_attention_kernel
 from .mamba2_ssd import ssd as ssd_scan
 from .mlstm import mlstm as mlstm_parallel
 
 __all__ = [
-    "decode_attention", "flash_attention", "mlstm_decode_step", "mlstm_parallel",
-    "ssd_decode_step", "ssd_scan",
+    "attention_chunked", "decode_attention", "flash_attention", "mlstm_decode_step",
+    "mlstm_parallel", "ssd_decode_step", "ssd_scan",
 ]
+
+NEG_INF = -1e30
+
+
+def attention_chunked(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, K, D)
+    v: torch.Tensor,  # (B, Sk, K, Dv)
+    *,
+    causal: bool,
+    window: Optional[int],
+    logit_cap: Optional[float],
+    q_offset: int,
+    scale: float,
+    block_k: int = 4096,
+) -> torch.Tensor:
+    """Online-softmax attention, a loop over KV blocks of ``block_k`` (port
+    of the JAX package's `_attention_chunked_jnp`).  Never materialises
+    (Sq, Sk); Dv may differ from D.  q is scaled and the scores taken in
+    q's dtype, then fp32 to the end; the output takes q's dtype."""
+    B, Sq, H, D = q.shape
+    _, Sk, K, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // K
+    block_k = min(block_k, Sk)
+    pad = (-Sk) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = (q * scale).reshape(B, Sq, K, G, D)
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    m = torch.full((B, Sq, K, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, K, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, K, G, Dv), dtype=torch.float32, device=q.device)
+    for jb in range((Sk + pad) // block_k):
+        kblk = k[:, jb * block_k : (jb + 1) * block_k]
+        vblk = v[:, jb * block_k : (jb + 1) * block_k]
+        s = torch.einsum("bqkgd,bskd->bqkgs", qg, kblk).float()
+        if logit_cap is not None and logit_cap > 0:
+            s = logit_cap * torch.tanh(s / logit_cap)
+        k_pos = jb * block_k + torch.arange(block_k, device=q.device)
+        mask = (k_pos < Sk)[None, :].expand(Sq, block_k)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None and window > 0:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqkgs,bskd->bqkgd", p, vblk.float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, K, D)
+    v: torch.Tensor,  # (B, Sk, K, Dv)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, Sq, H, D) x (B, Sk, K, D) x (B, Sk, K, Dv) -> (B, Sq, H, Dv) in
+    q's dtype.  Dv == D: the kernel's wrapper (the CUDA kernel on a CUDA
+    tensor, its plain version on a CPU one).  Dv != D: plain PyTorch on
+    every device, the reference up to Sq * Sk <= 256^2, else the chunked
+    scan."""
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset)
+    if v.shape[-1] == q.shape[-1]:
+        return flash_attention_kernel(q, k, v, scale=scale, **kw)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.shape[1] * k.shape[1] <= 256 * 256:
+        return ref.mha_reference(q, k, v, scale=scale, **kw)
+    return attention_chunked(q, k, v, scale=scale, **kw)
 
 
 def ssd_decode_step(

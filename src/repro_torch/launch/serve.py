@@ -13,8 +13,9 @@ and on the CPU at a reduced width (the plain versions of the kernels):
       --demo-requests 4
 
 ``--arch`` takes the dense family (llama3-8b, qwen3-32b, gemma2-27b), the
-Mamba2 hybrid (``--arch zamba2-1.2b``) and xLSTM (``--arch xlstm-1.3b``);
-other families raise until their slice is ported.
+MoE family (``--arch olmoe-1b-7b``, ``--arch deepseek-v3-671b`` with MLA),
+the Mamba2 hybrid (``--arch zamba2-1.2b``) and xLSTM (``--arch
+xlstm-1.3b``); other families raise until their slice is ported.
 
 The worker prints ``READY <engine-id>`` after warmup so orchestrators can
 wait for it, and a stats line on idle exit.  Weights are random, from

@@ -1,8 +1,9 @@
-"""Model zoo, PyTorch port: the dense GQA decoder family, the zamba2
-hybrid (Mamba2 layers with a shared attention block) and xLSTM (mLSTM and
-sLSTM blocks)."""
+"""Model zoo, PyTorch port: the dense GQA decoder family, the MoE family
+(olmoe; deepseek-v3 with MLA and its MTP head), the zamba2 hybrid (Mamba2
+layers with a shared attention block) and xLSTM (mLSTM and sLSTM
+blocks)."""
 
-from . import attention, cache_update, layers, mamba2, model, transformer, xlstm
+from . import attention, cache_update, layers, mamba2, mla, model, moe, transformer, xlstm
 from .model import (
     cache_batch_axes,
     decode_step,
@@ -18,7 +19,9 @@ __all__ = [
     "cache_update",
     "layers",
     "mamba2",
+    "mla",
     "model",
+    "moe",
     "transformer",
     "xlstm",
     "cache_batch_axes",

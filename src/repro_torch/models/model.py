@@ -1,11 +1,16 @@
-"""Model facade for the dense, hybrid and ssm (xLSTM) families: init /
+"""Model facade for the dense, moe, hybrid and ssm (xLSTM) families: init /
 forward / prefill / decode (port of `repro.models.model`).
 
 Parameters: {"embed": {"tok": (V, D)}, "final_norm": (D,), "lm_head": (D, V)
 unless tied, "decoder": the stage}.  The dense stage is [per-layer dict,
-...] with caches {"decoder": [{"k", "v"} per layer]}, each (B, S, K, hd);
-the hybrid and xLSTM stages and their caches are described in
-`transformer`.  Caches are updated in place.
+...] with caches {"decoder": [{"k", "v"} per layer]}, each (B, S, K, hd).
+The moe family has a "dense_prefix" stage of ``num_dense_layers`` MLP
+layers (deepseek: 3) before its "decoder" stage of MoE layers, caches
+{"dense_prefix": [...], "decoder": [...]} with one KV dict per layer, or
+an MLA latent dict ({"c_kv", "k_pe"}) when the config has MLA, and an
+"mtp" head (deepseek) that `forward` runs.  The hybrid and xLSTM stages
+and their caches are described in `transformer`.  Caches are updated in
+place.
 
 Other families raise `NotImplementedError` naming the ROADMAP.md slice
 that brings them.
@@ -23,15 +28,15 @@ from repro_torch.util import tree_map
 
 from . import attention as attn
 from . import mamba2 as mb
+from . import mla as mla_mod
 from . import transformer as tfm
 from . import xlstm as xl
 from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
 
 Batch = Dict[str, torch.Tensor]
 
-PORTED = ("dense", "hybrid", "ssm")  # the families the port serves
+PORTED = ("dense", "moe", "hybrid", "ssm")  # the families the port serves
 _LATER = {
-    "moe": "slice 4 (MLA + MoE)",
     "encdec": "slice 4 (whisper enc-dec)",
     "vlm": "slice 4 (VLM prefix)",
 }
@@ -68,6 +73,17 @@ def init_params(
         p["decoder"] = tfm.hybrid_stage_init(generator, cfg, **kw)
     elif cfg.family == "ssm":
         p["decoder"] = tfm.xlstm_stage_init(generator, cfg, **kw)
+    elif cfg.family == "moe":
+        nd = cfg.moe.num_dense_layers
+        if nd:
+            p["dense_prefix"] = tfm.decoder_stage_init(generator, cfg, nd, **kw)
+        p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers - nd, use_moe=True, **kw)
+        if cfg.mtp_depth:
+            p["mtp"] = {
+                "proj": embed_init(generator, 2 * cfg.d_model, cfg.d_model, **kw),
+                "block": tfm.decoder_layer_init(generator, cfg, **kw),
+                "norm": rmsnorm_init(cfg.d_model, **kw),
+            }
     else:
         p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers, **kw)
     return p
@@ -91,21 +107,46 @@ def _lm_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return softcap(logits, cfg.final_softcap)
 
 
-def _stage_apply(p: Params, cfg: ModelConfig, h: torch.Tensor, **kw):
+def _backbone(p: Params, cfg: ModelConfig, h: torch.Tensor, *, cache=None, **kw):
+    """Run the family's stages -> (h, aux loss fp32); ``cache`` (the whole
+    cache dict, or None) is updated in place."""
+    stage = lambda name: None if cache is None else cache[name]  # noqa: E731
     if cfg.family == "ssm":  # no positions: the recurrences carry them
-        return tfm.xlstm_stage_apply(p["decoder"], h, cfg, cache=kw.get("cache"))
-    stage = tfm.hybrid_stage_apply if cfg.family == "hybrid" else tfm.decoder_stage_apply
-    return stage(p["decoder"], h, cfg, **kw)
+        h, _ = tfm.xlstm_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"))
+    elif cfg.family == "hybrid":
+        h, _ = tfm.hybrid_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"), **kw)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if "dense_prefix" in p:
+            h, _, aux = tfm.decoder_stage_apply(
+                p["dense_prefix"], h, cfg, cache=stage("dense_prefix"), **kw)
+        h, _, a = tfm.decoder_stage_apply(
+            p["decoder"], h, cfg, cache=stage("decoder"), use_moe=cfg.family == "moe", **kw)
+        return h, aux + a
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def forward(p: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V) fp32."""
+def forward(p: Params, cfg: ModelConfig, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Full-sequence forward -> (logits (B, S, V) fp32, MoE aux loss fp32,
+    extras).  With an MTP head (deepseek) ``extras["mtp_logits"]`` (B, S -
+    1, V) predicts token t + 2 from [rmsnorm(h_t) | embed(token t + 1)]
+    through one dense layer at positions [0, S - 1)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, _ = _stage_apply(p, cfg, h, positions=positions)
-    return _lm_logits(p, cfg, h)
+    h, aux = _backbone(p, cfg, h, positions=positions)
+    extras: Dict[str, torch.Tensor] = {}
+    if cfg.mtp_depth and "mtp" in p:
+        mtp = p["mtp"]
+        emb_next = _embed_tokens(p, cfg, tokens)[:, 1:]  # the parameters' dtype, as in JAX
+        cat = torch.cat([rmsnorm(h[:, :-1], mtp["norm"], eps=cfg.rms_eps), emb_next], dim=-1)
+        h_mtp, _, _ = tfm.decoder_layer_apply(
+            mtp["block"], cat @ mtp["proj"], cfg,
+            window=None, positions=positions[:-1], cache=None, cache_len=None,
+        )
+        extras["mtp_logits"] = _lm_logits(p, cfg, h_mtp)
+    return _lm_logits(p, cfg, h), aux, extras
 
 
 def init_cache(
@@ -115,7 +156,8 @@ def init_cache(
     cache_dtype=torch.bfloat16,
     device: Union[str, torch.device, None] = None,
 ) -> Dict[str, Any]:
-    """Dense: a KV cache per layer.  Hybrid: a KV cache per super block
+    """Dense: a KV cache per layer; moe: the same per layer of each stage,
+    or an MLA latent cache when the config has MLA.  Hybrid: a KV cache per super block
     (the shared block attends once per super block) in ``cache_dtype``, and
     per Mamba layer a conv state and an ssm state, both fp32.  ssm: per
     mLSTM and sLSTM block its recurrent state, all fp32 whatever
@@ -137,6 +179,13 @@ def init_cache(
              "s": xl.init_slstm_state(cfg, batch_size, dev)}
             for _ in range(n_groups)
         ]}
+    if cfg.family == "moe":
+        if cfg.mla is not None:
+            kv = lambda: mla_mod.init_mla_cache(cfg, batch_size, max_len, cache_dtype, dev)  # noqa: E731
+        nd = cfg.moe.num_dense_layers
+        cache = {"dense_prefix": [kv() for _ in range(nd)]} if nd else {}
+        cache["decoder"] = [kv() for _ in range(cfg.n_layers - nd)]
+        return cache
     return {"decoder": [kv() for _ in range(cfg.n_layers)]}
 
 
@@ -164,9 +213,9 @@ def prefill(
     tokens = batch["tokens"]
     h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, cache = _stage_apply(p, cfg, h, positions=positions, cache=cache["decoder"], cache_len=0)
+    h, _ = _backbone(p, cfg, h, positions=positions, cache=cache, cache_len=0)
     logits = _lm_logits(p, cfg, h if all_logits else h[:, -1:])
-    return logits, {"decoder": cache}, tokens.shape[1]
+    return logits, cache, tokens.shape[1]
 
 
 def decode_step(
@@ -191,10 +240,9 @@ def decode_step(
         cache_len = int(cache_len)
         positions = torch.tensor([cache_len], device=dev)
     attend_len = None
-    if cfg.family != "ssm":  # the recurrent family attends over nothing
+    if cfg.family != "ssm" and cfg.mla is None:  # xLSTM attends over nothing, MLA masks itself
         attend_len = attn.decode_lengths(cache_len, tokens.shape[0], dev)
-    h, layers = _stage_apply(
-        p, cfg, h, positions=positions, cache=cache["decoder"], cache_len=cache_len,
-        attend_len=attend_len,
+    h, _ = _backbone(
+        p, cfg, h, positions=positions, cache=cache, cache_len=cache_len, attend_len=attend_len,
     )
-    return _lm_logits(p, cfg, h), {"decoder": layers}
+    return _lm_logits(p, cfg, h), cache

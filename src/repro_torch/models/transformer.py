@@ -1,5 +1,6 @@
-"""Decoder stages: dense, the zamba2 hybrid and xLSTM (port of the dense,
-hybrid and xlstm parts of `repro.models.transformer`).
+"""Decoder stages: dense, MoE (with MLA where the config has it), the
+zamba2 hybrid and xLSTM (port of the dense, moe, hybrid and xlstm parts of
+`repro.models.transformer`).
 
 The JAX package stacks layer parameters as (outer, period, ...) and scans
 over them; eagerly, the port keeps a plain list of per-layer dicts in
@@ -8,8 +9,10 @@ period (gemma2: [local, global]) and sandwich norms carry over.  The hybrid
 stage is {"super": [[Mamba2 layer] * shared_attn_every] * n_super, "shared":
 one attention block reused after every super block, "tail": [Mamba2
 layer] * n_tail}.  The xLSTM stage is [{"m": [mLSTM block] * (slstm_every
-- 1), "s": sLSTM block}] * n_groups.  MoE, MLA and enc-dec stages come with
-later slices.
+- 1), "s": sLSTM block}] * n_groups.  A decoder layer attends with MLA
+when ``cfg.mla`` is set and runs the MoE layer in place of its MLP when
+``use_moe``; the decoder stage returns the layers' summed MoE aux loss.
+The enc-dec stages come with a later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
 from . import mamba2 as mb
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import xlstm as xl
 from .layers import Params, _normal, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
@@ -38,14 +43,21 @@ def layer_window(cfg: ModelConfig, layer: int) -> Optional[int]:
     return None
 
 
-def decoder_layer_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
+def decoder_layer_init(gen, cfg: ModelConfig, *, use_moe: bool = False, dtype=torch.float32,
+                       device="cpu") -> Params:
     kw = dict(dtype=dtype, device=device)
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, **kw), "ln2": rmsnorm_init(cfg.d_model, **kw)}
     if cfg.sandwich_norm:
         p["ln1_post"] = rmsnorm_init(cfg.d_model, **kw)
         p["ln2_post"] = rmsnorm_init(cfg.d_model, **kw)
-    p["attn"] = attn.attn_init(gen, cfg, **kw)
-    p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, **kw)
+    if cfg.mla is not None:
+        p["attn"] = mla_mod.mla_init(gen, cfg, **kw)
+    else:
+        p["attn"] = attn.attn_init(gen, cfg, **kw)
+    if use_moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, **kw)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, **kw)
     return p
 
 
@@ -59,27 +71,39 @@ def decoder_layer_apply(
     cache: Optional[Dict[str, torch.Tensor]],
     cache_len,
     attend_len: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
+    use_moe: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
+    """-> (h, cache, MoE aux loss or None for an MLP layer)."""
     x = rmsnorm(h, p["ln1"], eps=cfg.rms_eps)
-    a_out, new_cache = attn.attn_apply(
-        p["attn"], x, cfg, window=window, positions=positions, cache=cache,
-        cache_len=cache_len, attend_len=attend_len,
-    )
+    if cfg.mla is not None:
+        a_out, new_cache = mla_mod.mla_apply(
+            p["attn"], x, cfg, positions=positions, cache=cache, cache_len=cache_len,
+        )
+    else:
+        a_out, new_cache = attn.attn_apply(
+            p["attn"], x, cfg, window=window, positions=positions, cache=cache,
+            cache_len=cache_len, attend_len=attend_len,
+        )
     if cfg.sandwich_norm:
         a_out = rmsnorm(a_out, p["ln1_post"], eps=cfg.rms_eps)
     h = h + a_out
     x = rmsnorm(h, p["ln2"], eps=cfg.rms_eps)
-    m_out = mlp_apply(p["mlp"], x, cfg.act)
+    aux = None
+    if use_moe:
+        m_out, aux = moe_mod.moe_apply(p["moe"], x, cfg)
+    else:
+        m_out = mlp_apply(p["mlp"], x, cfg.act)
     if cfg.sandwich_norm:
         m_out = rmsnorm(m_out, p["ln2_post"], eps=cfg.rms_eps)
-    return h + m_out, new_cache
+    return h + m_out, new_cache, aux
 
 
-def decoder_stage_init(gen, cfg: ModelConfig, n_layers: int, *, dtype=torch.float32,
-                       device="cpu") -> List[Params]:
+def decoder_stage_init(gen, cfg: ModelConfig, n_layers: int, *, use_moe: bool = False,
+                       dtype=torch.float32, device="cpu") -> List[Params]:
     if n_layers % layer_period(cfg):
         raise ValueError(f"{n_layers} layers not a multiple of period {layer_period(cfg)}")
-    return [decoder_layer_init(gen, cfg, dtype=dtype, device=device) for _ in range(n_layers)]
+    return [decoder_layer_init(gen, cfg, use_moe=use_moe, dtype=dtype, device=device)
+            for _ in range(n_layers)]
 
 
 def decoder_stage_apply(
@@ -91,15 +115,20 @@ def decoder_stage_apply(
     cache: Optional[List[Dict[str, torch.Tensor]]] = None,
     cache_len=None,
     attend_len: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+    use_moe: bool = False,
+) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
+    """-> (h, cache, the layers' summed MoE aux loss, fp32 0 without MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(layers):
-        h, _ = decoder_layer_apply(
+        h, _, a = decoder_layer_apply(
             lp, h, cfg,
             window=layer_window(cfg, i), positions=positions,
             cache=None if cache is None else cache[i], cache_len=cache_len,
-            attend_len=attend_len,
+            attend_len=attend_len, use_moe=use_moe,
         )
-    return h, cache
+        if a is not None:
+            aux = aux + a
+    return h, cache, aux
 
 
 # ---------------------------------------------------------------------------

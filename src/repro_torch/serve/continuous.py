@@ -7,7 +7,9 @@ not -- with a per-slot `cache_len` vector (the decode kernel masks each
 row at its own length).  Finished rows are evicted immediately; freed
 slots are refilled at chunk boundaries by an interleaved prefill
 microbatch: new prompts, right-padded to a bucket (grouped by exact
-length for the recurrent hybrid and xLSTM families), prefill into a fresh
+length for the recurrent hybrid and xLSTM families; the MoE family keeps
+the buckets, whose pad tokens take expert capacity exactly as in the JAX
+engine), prefill into a fresh
 small cache whose rows replace the slots' rows of the persistent one
 (`cache_update.insert_rows`: a new occupant never reads its predecessor's
 KV).  The running batch never drains.

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (attention, Mamba2 SSD, mLSTM) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card; and the MoE layer and MLA, which run
+no kernel of the port, on the card against the CPU.
 
 Needs an NVIDIA GPU (marked `cuda`; each test skips without one) and
 imports only torch and the port, so it runs where jax is not installed:
@@ -15,6 +16,8 @@ rounded to bf16).  The SSD's fp32 final state: atol 5e-4 + rtol 1e-3
 
 bf16 inputs run the tensor-core kernels (the serving path), fp32 inputs
 the scalar ones; the flash, SSD and mLSTM tests check which route ran.
+The MoE and MLA layers in fp32 (reduced configs, TF32 off): 1e-5 (the
+layer bar of `tests/test_torch_moe.py`), with the same experts picked.
 Decode attention is one kernel for every dtype mix (fp32 math), one
 launch per call with a cluster of CTAs per (row, kv head).
 """
@@ -28,6 +31,12 @@ from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
 from repro_torch.kernels import mlstm as mmod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.configs import CONFIGS  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.util import tree_map  # noqa: E402
 
 BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 
@@ -60,6 +69,8 @@ FLASH_CASES = [
     (1, 304, 304, 32, 8, 128, True, None, None, 0),    # llama3-8b prefill group
     (1, 200, 200, 16, 2, 128, True, None, None, 0),    # group 8
     (2, 150, 150, 8, 8, 32, True, None, None, 0),      # D=32, ragged
+    (1, 304, 304, 16, 16, 128, True, None, None, 0),   # olmoe-1b-7b prefill group (MHA)
+    (1, 77, 77, 16, 16, 128, True, None, None, 0),     # olmoe, ragged
 ]
 DECODE_CASES = [
     # S, H, K, D, window, cap
@@ -71,6 +82,7 @@ DECODE_CASES = [
     (300, 14, 2, 64, None, None),    # group 7
     (300, 32, 2, 128, None, None),   # group 16
     (1024, 32, 32, 64, None, None),  # zamba2 shared block decode: MHA, D=64
+    (1024, 16, 16, 128, None, None),  # olmoe-1b-7b decode: MHA (group 1), D=128
 ]
 
 
@@ -387,3 +399,90 @@ def test_mlstm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         mmod.mlstm(q, k, v, ig[:, :8], fg)
     with pytest.raises(ValueError):  # last dim not contiguous
         mmod.mlstm(torch.cat([q, q], -1)[..., ::2], k, v, ig, fg)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA: plain PyTorch on every device, the card against the CPU
+# ---------------------------------------------------------------------------
+
+LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _layer_params(arch, stage, key):
+    """One layer's ``key`` subtree of a reduced ``arch``, on the CPU."""
+    cfg = CONFIGS[arch].reduced()
+    p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, p[stage][0][key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("B,S", [(2, 24), (4, 25)])  # one group; a padded tail
+def test_moe_apply_cuda_matches_cpu(cuda, monkeypatch, arch, B, S):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, p = _layer_params(arch, "decoder", "moe")
+    rng = np.random.default_rng(B * S)
+    for k, w in p["experts"].items():  # unit scale: dense_init's outputs sit inside atol
+        p["experts"][k] = torch.from_numpy(rng.normal(size=w.shape).astype(np.float32)) / w.shape[1] ** 0.5
+    x = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model)).astype(np.float32))
+    out_c, aux_c = moe_mod.moe_apply(p, x, cfg)
+    p_g = tree_map(lambda t: t.to(cuda), p)
+    out_g, aux_g = moe_mod.moe_apply(p_g, x.to(cuda), cfg)
+    _, idx_c, _ = moe_mod._route(p, x.reshape(B * S, -1), cfg)
+    _, idx_g, _ = moe_mod._route(p_g, x.to(cuda).reshape(B * S, -1), cfg)
+    assert torch.equal(idx_g.cpu(), idx_c)
+    torch.testing.assert_close(out_g.cpu(), out_c, **LAYER_TOL)
+    torch.testing.assert_close(aux_g.cpu(), aux_c, **LAYER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prefill-40", "prefill-300", "decode"])
+def test_mla_apply_cuda_matches_cpu(cuda, monkeypatch, mode):
+    """Prefill below and above Sq * Sk = 256^2 (the reference, the chunked
+    scan), and absorbed decode with per-slot lengths; no flash launch."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, p = _layer_params("deepseek-v3-671b", "decoder", "attn")
+    m = cfg.mla
+    rng = np.random.default_rng(7)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))  # noqa: E731
+    if mode == "decode":
+        B, S, max_len = 3, 1, 16
+        clen = torch.tensor([0, 5, 11], dtype=torch.int32)
+        cache = {"c_kv": f(B, max_len, m.kv_lora_rank), "k_pe": f(B, max_len, m.rope_head_dim)}
+        kw = dict(positions=clen[:, None], cache_len=clen)
+    else:
+        B, S = 2, int(mode.split("-")[1])
+        cache = mla_mod.init_mla_cache(cfg, B, S + 8, torch.float32)
+        kw = dict(cache_len=0)
+    x = f(B, S, cfg.d_model)
+    launches = fmod.flash_attention.launches
+    dev_kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    out_g, cache_g = mla_mod.mla_apply(tree_map(lambda t: t.to(cuda), p), x.to(cuda), cfg,
+                                       cache=tree_map(lambda t: t.to(cuda), cache), **dev_kw)
+    out_c, cache_c = mla_mod.mla_apply(p, x, cfg, cache=cache, **kw)
+    assert fmod.flash_attention.launches == launches
+    torch.testing.assert_close(out_g.cpu(), out_c, **LAYER_TOL)
+    for k in ("c_kv", "k_pe"):
+        torch.testing.assert_close(cache_g[k].cpu(), cache_c[k], **LAYER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [200, 300])  # the reference, the chunked scan
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dv_ne_d_attention_launches_no_flash_kernel(cuda, monkeypatch, Sq, dtype):
+    """MLA's shapes (Dqk 192, Dv 128) go to plain PyTorch by shape: no
+    flash launch on any route.  In fp32 the result is the CPU's; in bf16
+    the chunked scan rounds its scores to bf16 (as the JAX scan does), and
+    the two devices' GEMMs may round a score apart, so only the shape, the
+    dtype and finite values are held there."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(Sq)
+    q, k = _t(rng, (1, Sq, 8, 192), cuda, dtype), _t(rng, (1, Sq, 8, 192), cuda, dtype)
+    v = _t(rng, (1, Sq, 8, 128), cuda, dtype)
+    before = (fmod.flash_attention.launches, dict(fmod.flash_attention.route_launches))
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert (fmod.flash_attention.launches, fmod.flash_attention.route_launches) == before
+    exp = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    assert out.dtype == dtype and out.shape == (1, Sq, 8, 128) and out.isfinite().all()
+    if dtype == torch.float32:
+        assert_matches_plain(out.cpu(), exp)

@@ -1,5 +1,5 @@
-"""The port's model layers and models (dense, zamba2 hybrid, xLSTM) against
-the JAX package's.
+"""The port's model layers and models (dense, MoE with MLA and MTP, zamba2
+hybrid, xLSTM) against the JAX package's.
 
 Weights come from `repro.models.init_params` at PRNGKey(0), converted by
 `repro_torch.bridge`; inputs are made with numpy from a seed and fed to
@@ -283,8 +283,9 @@ def test_forward_logits_match_jax(arch, kv):
     jc, tc, jp, tp = _params(arch, kv)
     toks = _tokens(jc, 2, 24, 0)
     exp, _, _ = jmodel.forward(jp, jc, {"tokens": jnp.asarray(toks)})
-    out = tmodel.forward(tp, tc, {"tokens": torch.from_numpy(toks).long()})
+    out, aux, extras = tmodel.forward(tp, tc, {"tokens": torch.from_numpy(toks).long()})
     _close(out, exp, MODEL_TOL)
+    assert float(aux) == 0.0 and extras == {}
 
 
 @pytest.mark.parametrize("arch,kv", MODEL_CASES)
@@ -293,7 +294,7 @@ def test_decode_matches_forward_exactly(arch, kv):
     _, tc, _, tp = _params(arch, kv)
     B, S_prompt, n_dec = 2, 12, 3
     toks = torch.from_numpy(_tokens(tc, B, S_prompt + n_dec, 1)).long()
-    full = tmodel.forward(tp, tc, {"tokens": toks})
+    full, _, _ = tmodel.forward(tp, tc, {"tokens": toks})
     cache = tmodel.init_cache(tc, B, S_prompt + n_dec + 4, torch.float32, "cpu")
     lg, cache, clen = tmodel.prefill(tp, tc, {"tokens": toks[:, :S_prompt]}, cache)
     torch.testing.assert_close(lg[:, -1], full[:, S_prompt - 1], **MODEL_TOL)
@@ -303,8 +304,83 @@ def test_decode_matches_forward_exactly(arch, kv):
         torch.testing.assert_close(lg[:, 0], full[:, S_prompt + t], **MODEL_TOL)
 
 
+MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]  # deepseek: MLA, dense prefix, MTP
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_jax(arch):
+    """Logits, the summed MoE aux loss and (deepseek) the MTP head's logits."""
+    jc, tc, jp, tp = _params(arch)
+    toks = _tokens(jc, 2, 24, 0)
+    exp, aux_j, ex_j = jmodel.forward(jp, jc, {"tokens": jnp.asarray(toks)})
+    out, aux_t, ex_t = tmodel.forward(tp, tc, {"tokens": torch.from_numpy(toks).long()})
+    _close(out, exp, MODEL_TOL)
+    _close(aux_t, aux_j, MODEL_TOL)
+    assert sorted(ex_t) == sorted(ex_j) == (["mtp_logits"] if jc.mtp_depth else [])
+    for k in ex_t:
+        assert ex_t[k].shape == (2, 23, jc.vocab_size)
+        _close(ex_t[k], ex_j[k], MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_and_decode_match_jax(arch):
+    """Prefill then 3 decode steps with per-slot lengths, against JAX's
+    prefill and decode on the same batch (so the same tokens share each
+    capacity group on both sides)."""
+    jc, tc, jp, tp = _params(arch)
+    B, S_prompt, n_dec, max_len = 2, 12, 3, 20
+    toks = _tokens(jc, B, S_prompt + n_dec, 1)
+    jcache = jmodel.init_cache(jc, B, max_len, cache_dtype=jnp.float32)
+    tcache = tmodel.init_cache(tc, B, max_len, torch.float32, "cpu")
+    lg_j, jcache, _ = jmodel.prefill(jp, jc, {"tokens": jnp.asarray(toks[:, :S_prompt])}, jcache)
+    lg_t, tcache, _ = tmodel.prefill(tp, tc, {"tokens": torch.from_numpy(toks[:, :S_prompt]).long()},
+                                     tcache)
+    _close(lg_t, lg_j, MODEL_TOL)
+    clen = np.full((B,), S_prompt, np.int32)
+    for t in range(n_dec):
+        step = toks[:, S_prompt + t][:, None]
+        lg_j, jcache = jmodel.decode_step(jp, jc, jnp.asarray(step), jcache, jnp.asarray(clen))
+        lg_t, tcache = tmodel.decode_step(tp, tc, torch.from_numpy(step).long(), tcache,
+                                          torch.from_numpy(clen))
+        _close(lg_t, lg_j, MODEL_TOL)
+        clen = clen + 1
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_close_to_forward(arch):
+    """Torch twin of tests/test_models.py::test_decode_close_for_moe:
+    capacity may drop other tokens at another batch composition, so the
+    prefill's last logits need only be close to the forward's (top token
+    agreeing on at least half the rows, max error < 0.2)."""
+    _, tc, _, tp = _params(arch)
+    B, S_prompt = 2, 12
+    toks = torch.from_numpy(_tokens(tc, B, S_prompt + 1, 1)).long()
+    full, _, _ = tmodel.forward(tp, tc, {"tokens": toks})
+    cache = tmodel.init_cache(tc, B, S_prompt + 8, torch.float32, "cpu")
+    lg, cache, _ = tmodel.prefill(tp, tc, {"tokens": toks[:, :S_prompt]}, cache)
+    top_full, top_pre = full[:, S_prompt - 1].argmax(-1), lg[:, -1].argmax(-1)
+    assert (top_full == top_pre).float().mean() >= 0.5
+    assert (lg[:, -1] - full[:, S_prompt - 1]).abs().max().item() < 0.2
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_cache_layout_matches_jax(arch):
+    """{"dense_prefix": [...], "decoder": [...]}: a KV dict per layer, or
+    MLA's latent dict, each leaf the JAX stack's (n, 1, ...) slice."""
+    jc, tc, _, _ = _params(arch)
+    jcache = jmodel.init_cache(jc, 3, 16, cache_dtype=jnp.float32)
+    tcache = tmodel.init_cache(tc, 3, 16, torch.float32, "cpu")
+    assert sorted(tcache) == sorted(jcache)
+    for stage, layers in tcache.items():
+        for name, leaf in jcache[stage].items():
+            assert leaf.shape[:2] == (len(layers), 1)
+            assert all(tuple(lay[name].shape) == leaf.shape[2:] for lay in layers)
+    axes = tmodel.cache_batch_axes(tc)
+    assert all(a == 0 for a in jax.tree_util.tree_leaves(axes))
+
+
 def test_unported_family_names_its_slice():
     with pytest.raises(NotImplementedError, match="slice 4"):
         tmodel.init_params(TCONFIGS["whisper-large-v3"].reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
-        tmodel.init_params(TCONFIGS["olmoe-1b-7b"].reduced(), device="cpu")
+        tmodel.init_params(TCONFIGS["internvl2-1b"].reduced(), device="cpu")

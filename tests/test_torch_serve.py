@@ -1,5 +1,6 @@
-"""The port's serving plane: continuous batching against the JAX engine, slot
-semantics, the copied request plane, and the serve CLI on the CPU."""
+"""The port's serving plane: continuous batching against the JAX engine (the
+dense, MoE, hybrid and xLSTM families), slot semantics, the copied request
+plane, and the serve CLI on the CPU."""
 
 import os
 import subprocess
@@ -133,6 +134,38 @@ def test_xlstm_greedy_tokens_match_jax_continuous_engine():
         assert len(got[r]) == 8 and got[r] == exp[r], r
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_greedy_tokens_match_jax_continuous_engine(arch):
+    """MoE (reduced; deepseek with MLA's latent cache): prompts right-padded
+    to the same prefill buckets of 8 with token 0 on both sides (the pad
+    tokens take expert capacity), one group of two prompts, admissions
+    mid-batch, greedy tokens equal to the JAX engine's on the same
+    weights (the JAX package serves deepseek, tests/test_serve_continuous.py)."""
+    cfg, (jp, tp), kw = _setup(arch, max_new_tokens=8)
+    pa, pb, pc, pd = _prompts(cfg, [5, 7, 11, 1], seed=8)
+
+    def drive(eng):
+        eng.admit([("a", pa, 8), ("b", pb, 8)])  # one prefill group, bucket 8
+        done, _ = eng.step_chunk(2)
+        eng.admit([("c", pc, 8)])
+        out = {r: s.out for r, s in done.items()}
+        while eng.n_live() == 3:
+            done, _ = eng.step_chunk(1)
+            out.update({r: s.out for r, s in done.items()})
+        eng.admit([("d", pd, 8)])
+        assert eng.stats["mid_batch_admissions"] == 2 and eng.stats["prefill_groups"] == 3
+        while eng.n_live():
+            done, _ = eng.step_chunk()
+            out.update({r: s.out for r, s in done.items()})
+        return out
+
+    exp = drive(JContinuousEngine(JCONFIGS[arch].reduced(), jp, JServeConfig(**kw)))
+    got = drive(ContinuousEngine(cfg, tp, ServeConfig(**kw), device="cpu"))
+    assert sorted(got) == ["a", "b", "c", "d"]
+    for r in got:
+        assert len(got[r]) == 8 and got[r] == exp[r], r
+
+
 def test_mid_stream_admission_without_draining():
     cfg, (_, tp), kw = _setup(max_new_tokens=10)
     scfg = ServeConfig(**kw)
@@ -246,6 +279,20 @@ def test_serve_cli_serves_xlstm_on_cpu():
     env = dict(os.environ, PYTHONPATH=_SRC)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "xlstm-1.3b", "--reduced",
+         "--device", "cpu", "--demo-requests", "4", "--idle-timeout", "0.5",
+         "--new-tokens", "4"],
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "READY engine-0"
+    assert "served 4 requests, 16 tokens" in lines[-1]
+
+
+def test_serve_cli_serves_olmoe_on_cpu():
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmoe-1b-7b", "--reduced",
          "--device", "cpu", "--demo-requests", "4", "--idle-timeout", "0.5",
          "--new-tokens", "4"],
         env=env, capture_output=True, text=True, timeout=120,
