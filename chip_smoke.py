@@ -21,7 +21,7 @@ script exits non-zero:
    PyTorch library call's where one computes the same function
    (``F.scaled_dot_product_attention``, a yardstick the port never calls;
    none for the SSD scan and the mLSTM), at the serving shapes of phases
-   3, 3b, 3c and 3d first;
+   3, 3b, 3c, 3d, 3f and 3g first;
 3. serve: llama3-8b at full width (32 layers, random weights from a seed)
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
@@ -46,6 +46,19 @@ script exits non-zero:
    the MTP head initialised, unused by serving), the same way; both
    attention counters stay at 0 (MLA's Dv != D takes plain PyTorch by
    shape); then its profiles;
+3f. generate: whisper-large-v3 at full width and depth (32 encoder + 32
+   decoder layers, d_model 1280, 20 heads of 64) through
+   ``Engine.generate`` with ``extras={"audio_frames": ...}``: 4 rows of 1500
+   random frames, a 4-token prompt each, 32 greedy tokens, ``max_len`` 448
+   (the learned position table); the flash and decode counters equal the
+   launches the code implies, every flash launch on the tensor-core route,
+   negated frames change the tokens or the logits; the encoder's time, a
+   prefill profile and a decode-step profile whose least step counts the
+   decoder's weights and the cross cache;
+3g. serve: internvl2-1b at full width and depth (24 layers, GQA 14/2 at
+   head_dim 64) text-only behind ``ContinuousEngine`` as in phase 3; then
+   ``Engine.generate`` with a 256-row ``prefix_embed`` per row (prefill
+   length 256 + the prompt, launch counts as the code implies);
 4. consistency: llama3-8b width at 2 layers in fp32 (TF32 off), prefill and
    4 decode steps on the card (kernels) against the same weights on the CPU
    (plain versions): identical greedy tokens, logits within 2e-3;
@@ -61,7 +74,11 @@ script exits non-zero:
 4e. the same for deepseek width at 2 layers (one dense MLA layer, one MoE
    layer cut to ``DEEPSEEK_CHECK_EXPERTS`` = 16 routed experts, top-8 and
    1 shared kept), then ``forward`` with the MTP head's logits (also held
-   within 2e-3).
+   within 2e-3);
+4f. the same for whisper width at 2 encoder + 2 decoder layers over 1500
+   random audio frames, then ``forward``;
+4g. the same for internvl2 width at 2 layers behind a 256-row prefix, then
+   ``forward``.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving phase, error and times at the
@@ -93,6 +110,7 @@ SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
 DEEPSEEK_SERVE_LAYERS = 4  # phase 3e: the 3 dense MLA layers + 1 MoE layer (31.6 GB in bf16)
 DEEPSEEK_CHECK_EXPERTS = 16  # phase 4e: routed experts of its MoE layer (fp32 on both devices)
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 4, 32  # phases 3f/3g: `Engine.generate` rows, prompt, tokens
 
 
 def emit(obj) -> None:
@@ -213,7 +231,10 @@ def decode_case(torch, F, dmod, flush, dev, name, B, S, K, G, D, clen, q_dt, kv_
 
 
 def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
-               causal=True, window=None, cap=None, q_offset=0):
+               causal=True, window=None, cap=None, q_offset=0, yardstick=None):
+    """With ``yardstick`` (the decode attention module; Sq = 1, non-causal)
+    the row also times the decode kernel on the same q, K and V with every
+    length Sk: the same function, as a yardstick only."""
     g = torch.Generator(device=dev).manual_seed(B * Sq + Sk + G)
     H = K * G
     q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(getattr(torch, dt))
@@ -252,6 +273,10 @@ def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
         "plain_ms": time_ms(torch, lambda: fmod.flash_attention_plain(q, k, v, **kw), 5, flush),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
     }
+    if yardstick is not None:
+        lens = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+        row["decode_yardstick_ms"] = time_ms(
+            torch, lambda: yardstick.decode_attention(q[:, 0], k, v, lens), 10, flush)
     emit(row)
     check(ok, f"flash_attention {name}: error {ratio:.3g}x its limit (max_abs_err {err})")
     return row
@@ -431,6 +456,25 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     d("olmoe-serve", 4, 1024, 16, 1, 128, [332, 48, 305, 17], "bfloat16", "float32")
     f("olmoe-serve-304", 1, 304, 304, 16, 1, 128, "bfloat16")
     f("olmoe-ragged-77", 1, 77, 77, 16, 1, 128, "bfloat16")
+    # the serving shapes of phase 3f: whisper-large-v3 is MHA (group 1) at
+    # head_dim 64; its encoder attends non-causally over 1500 frames (4
+    # rows), its cross-attention runs 4 prompt rows (prefill) and one row
+    # (decode) per batch row against the 1500 encoder rows; self-attention
+    # decodes over at most 448 positions (lengths 0, 1, 447, 448 here)
+    f("whisper-encoder-4x1500", 4, 1500, 1500, 20, 1, 64, "bfloat16", causal=False)
+    f("whisper-encoder-1500-f32", 1, 1500, 1500, 20, 1, 64, "float32", causal=False)
+    f("whisper-cross-prefill-4x1500", 4, 4, 1500, 20, 1, 64, "bfloat16", causal=False)
+    f("whisper-cross-decode-1x1500", 4, 1, 1500, 20, 1, 64, "bfloat16", causal=False,
+      yardstick=dmod)
+    d("whisper-self", 4, 448, 20, 1, 64, [0, 1, 447, 448], "bfloat16", "float32")
+    # the serving shapes of phase 3g: internvl2-1b is GQA 14/2 (group 7) at
+    # head_dim 64; prefill of a 256-row prefix + 4 text tokens (4 rows), a
+    # text bucket of 304; decode at serving lengths and at the tile edges
+    d("internvl2-serve", 4, 1024, 2, 7, 64, [332, 48, 305, 17], "bfloat16", "float32")
+    d("internvl2-edges", 8, 1024, 2, 7, 64, [0, 1, 15, 16, 17, 299, 1023, 1024],
+      "bfloat16", "float32")
+    f("internvl2-prefix-4x260", 4, 260, 260, 2, 7, 64, "bfloat16")
+    f("internvl2-serve-304", 1, 304, 304, 2, 7, 64, "bfloat16")
     m("serve-300", 1, 300, 64, 2, "bfloat16")
     m("serve-16", 1, 16, 64, 2, "bfloat16")
     m("forward-4x2048", 4, 2048, 64, 2, "bfloat16", return_state=False)
@@ -471,6 +515,17 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
 # phase 3: each family at full width behind the continuous-batching engine
 # ---------------------------------------------------------------------------
 
+def reset_counters(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+        for r in getattr(fn, "route_launches", {}):
+            fn.route_launches[r] = 0
+
+
+def tree_bytes(port, tree) -> int:
+    return sum(t.numel() * t.element_size() for t in port["tree_flatten"](tree)[0])
+
+
 def phase_serve(torch, np, port, dev, card, cfg, kernels, idle=()):
     """Serve ``cfg`` (full width; depth as given); ``kernels`` names the
     wrappers of its path, each of which must launch during this phase, and
@@ -503,10 +558,7 @@ def phase_serve(torch, np, port, dev, card, cfg, kernels, idle=()):
             time.sleep(SUBMIT_GAP_S)
 
     wrappers = port["wrappers"]
-    for fn in wrappers.values():
-        fn.launches = 0
-        for r in getattr(fn, "route_launches", {}):
-            fn.route_launches[r] = 0
+    reset_counters(wrappers)
     t0 = time.perf_counter()
     sender = threading.Thread(target=client, name="chip-smoke-client")
     sender.start()
@@ -553,13 +605,9 @@ def phase_serve(torch, np, port, dev, card, cfg, kernels, idle=()):
               f"{name}: {by_route} of {launches[name]} launches on the tensor-core route")
     # the weights a decode step reads: all but the MTP head, which only
     # `forward` runs
-    weight_bytes = sum(t.numel() * t.element_size() for t in port["tree_flatten"](
-        {k: v for k, v in params.items() if k != "mtp"})[0])
+    weight_bytes = tree_bytes(port, {k: v for k, v in params.items() if k != "mtp"})
     # a recurrent family reads and writes its whole state every step
-    state_bytes = 0
-    if cfg.family == "ssm":
-        state_bytes = sum(t.numel() * t.element_size()
-                          for t in port["tree_flatten"](eng.cache)[0])
+    state_bytes = tree_bytes(port, eng.cache) if cfg.family == "ssm" else 0
     profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes)
     profile_prefill(torch, port, params, cfg, dev)
     del eng, params
@@ -567,25 +615,171 @@ def phase_serve(torch, np, port, dev, card, cfg, kernels, idle=()):
     return launches
 
 
-def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
-    """Where a decode step's time goes with all 4 slots live: host-clock step
-    time, device-busy time per step (the sum of the kernels `torch.profiler`
-    saw, one stream so no overlap), the idle share, the least step time
-    (the weights read once, and a recurrent state read and written once),
-    and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def generate_run(torch, np, port, dev, cfg, params, extras, max_len, seed=0):
+    """`Engine.generate` over ``GEN_ROWS`` rows of a ``GEN_PROMPT``-token
+    prompt each plus ``extras`` (numpy), ``GEN_NEW`` greedy tokens, with
+    the kernel counters set to 0 just before -> (tokens, launches, flash
+    launches by route, wall s, prompts)."""
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(GEN_ROWS, GEN_PROMPT))
+    scfg = port["ServeConfig"](max_batch=GEN_ROWS, max_len=max_len, max_new_tokens=GEN_NEW)
+    eng = port["Engine"](cfg, params, scfg, device=dev)
+    wrappers = port["wrappers"]
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, extras=extras)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    routes = dict(wrappers["flash_attention"].route_launches)
+    check(out.shape == (GEN_ROWS, GEN_NEW) and ((out >= 0) & (out < cfg.vocab_size)).all(),
+          f"{cfg.name}: {out.shape} tokens, expected {GEN_NEW} per row in range")
+    return out, launches, routes, wall, prompts
 
+
+def check_counts(cfg, launches, routes, expect) -> None:
+    for name, n in expect.items():
+        check(launches[name] == n, f"{cfg.name}: {launches[name]} {name} launches, the code "
+                                   f"implies {n}")
+    for name in ("ssd", "mlstm"):
+        check(launches[name] == 0, f"{cfg.name}: {name} launched {launches[name]} times")
+    check(routes["mma"] == launches["flash_attention"],
+          f"{cfg.name}: flash {routes} of {launches['flash_attention']} on the tensor-core route")
+
+
+def phase_whisper(torch, np, port, dev, card, cfg):
+    """whisper-large-v3 at full width and depth through `Engine.generate`
+    with 1500 random audio frames per row; launch counts held to what the
+    code implies; negated frames must change the tokens or the logits; the
+    encoder's device time, a prefill profile and a decode-step profile."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = port["init_params"](cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    shape = (GEN_ROWS, cfg.encoder_seq, cfg.d_model)
+    frames = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    max_len = cfg.max_target_positions
+    out, launches, routes, wall, prompts = generate_run(
+        torch, np, port, dev, cfg, params, {"audio_frames": frames}, max_len)
+    neg, *_ = generate_run(torch, np, port, dev, cfg, params, {"audio_frames": -frames}, max_len)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev),
+             "audio_frames": torch.as_tensor(frames, device=dev)}
+    init_cache, prefill = port["init_cache"], port["prefill"]
+    lg = prefill(params, cfg, batch, init_cache(cfg, GEN_ROWS, max_len, torch.float32, dev))[0]
+    lg_neg = prefill(params, cfg, {**batch, "audio_frames": -batch["audio_frames"]},
+                     init_cache(cfg, GEN_ROWS, max_len, torch.float32, dev))[0]
+    logit_diff = (lg - lg_neg).abs().max().item()
+    L, L_enc = cfg.n_layers, cfg.n_encoder_layers
+    # per encoder layer one flash launch; per decoder layer a self- and a
+    # cross-attention flash in prefill, then per decode call one cross
+    # flash and one decode launch (generate decodes after every token)
+    expect = {"flash_attention": L_enc + 2 * L + GEN_NEW * L, "decode_attention": GEN_NEW * L}
+    # the encoder alone on the batch, between two events (launch gaps included)
+    h = batch["audio_frames"].to(getattr(torch, cfg.dtype)) + params["enc_pos"][None]
+    port["transformer"].encoder_stage_apply(params["encoder"], h, cfg)
+    s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s_ev.record()
+    port["transformer"].encoder_stage_apply(params["encoder"], h, cfg)
+    e_ev.record()
+    e_ev.synchronize()
+    emit({
+        "phase": "generate", "arch": cfg.name, "n_layers": L, "n_encoder_layers": L_enc,
+        "d_model": cfg.d_model, "init_s": init_s,
+        "params": sum(t.numel() for t in port["tree_flatten"](params)[0]),
+        "rows": GEN_ROWS, "prompt_len": GEN_PROMPT, "new_tokens": GEN_NEW,
+        "audio_frames": list(shape), "max_len": max_len, "cache_dtype": "float32",
+        "wall_s": wall, "tok_per_s": GEN_ROWS * GEN_NEW / wall, "launches": launches,
+        "expected_launches": expect, "flash_route_launches": routes,
+        "tokens_row0": out[0].tolist(), "negated_frames_tokens_differ": bool((out != neg).any()),
+        "negated_frames_prefill_logit_max_diff": logit_diff,
+        "encoder_event_ms": s_ev.elapsed_time(e_ev), "card": card,
+    })
+    check_counts(cfg, launches, routes, expect)
+    check(bool((out != neg).any()) or logit_diff > 1e-4,
+          "whisper: negated audio frames changed neither the tokens nor the logits")
+    profile_prefill(torch, port, params, cfg, dev, batch=batch, max_len=max_len)
+    # decode steps after a prefill of the batch: the decoder's weights (not
+    # the encoder's, which decode never reads) and the cross cache once
+    cache = init_cache(cfg, GEN_ROWS, max_len, torch.float32, dev)
+    lg, cache, clen = prefill(params, cfg, batch, cache)
+    state = {"tok": lg[:, -1].argmax(-1), "clen": clen}
+
+    def run(n):
+        for _ in range(n):
+            step, _ = port["decode_step"](params, cfg, state["tok"][:, None], cache, state["clen"])
+            state["clen"] += 1
+            state["tok"] = step[:, 0].argmax(-1)
+
+    run(2)
+    enc_keys = ("encoder", "enc_pos", "encoder_norm")
+    weight_bytes = tree_bytes(port, {k: v for k, v in params.items() if k not in enc_keys})
+    cross_bytes = tree_bytes(port, [c["cross"] for c in cache["decoder"]])
+    step_profile(torch, cfg, lambda: run(8), 8, weight_bytes, cross_bytes=cross_bytes)
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vlm_prefix(torch, np, port, dev, card, cfg):
+    """internvl2-1b at full width and depth through `Engine.generate` with a
+    ``num_prefix_tokens``-row random ``prefix_embed`` per row: the prefill
+    length counts the prefix, launch counts held to what the code implies;
+    then the prefill's profile."""
+    params = port["init_params"](cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    P = cfg.num_prefix_tokens
+    rng = np.random.default_rng(1)
+    prefix = (rng.standard_normal((GEN_ROWS, P, cfg.d_model)) * 0.1).astype(np.float32)
+    out, launches, routes, wall, prompts = generate_run(
+        torch, np, port, dev, cfg, params, {"prefix_embed": prefix}, 1024)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev),
+             "prefix_embed": torch.as_tensor(prefix, device=dev)}
+    _, _, n = port["prefill"](params, cfg, batch,
+                              port["init_cache"](cfg, GEN_ROWS, 1024, torch.float32, dev))
+    L = cfg.n_layers
+    expect = {"flash_attention": L, "decode_attention": GEN_NEW * L}
+    emit({
+        "phase": "generate", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+        "rows": GEN_ROWS, "prefix_rows": P, "prompt_len": GEN_PROMPT, "prefill_len": n,
+        "new_tokens": GEN_NEW, "wall_s": wall, "tok_per_s": GEN_ROWS * GEN_NEW / wall,
+        "launches": launches, "expected_launches": expect, "flash_route_launches": routes,
+        "tokens_row0": out[0].tolist(), "card": card,
+    })
+    check(n == P + GEN_PROMPT, f"internvl2 prefill length {n}, expected {P} + {GEN_PROMPT}")
+    check_counts(cfg, launches, routes, expect)
+    profile_prefill(torch, port, params, cfg, dev, batch=batch)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
+    """Where a decode step's time goes with all 4 slots of ``eng`` live (see
+    `step_profile`)."""
     rng = np.random.default_rng(1)
     eng.admit([(f"prof-{i}", rng.integers(0, cfg.vocab_size, size=n).tolist(), 10**6)
                for i, n in enumerate((16, 300, 57, 128))])
     eng.step_chunk(2)
+    step_profile(torch, cfg, lambda: eng.step_chunk(n_steps), n_steps, weight_bytes, state_bytes)
+
+
+def step_profile(torch, cfg, run, n_steps, weight_bytes, state_bytes=0, cross_bytes=0):
+    """``run`` takes ``n_steps`` decode steps: host-clock step time,
+    device-busy time per step (the sum of the kernels `torch.profiler` saw,
+    one stream so no overlap), the idle share, the least step time (the
+    weights read once, a recurrent state read and written once, an
+    enc-dec's cross cache read once), and the kernels that take the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.step_chunk(n_steps)
+    run()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.step_chunk(n_steps)
+        run()
         torch.cuda.synchronize()
     ev, busy_ms, top = device_summary(prof, n_steps)
     emit({
@@ -596,7 +790,8 @@ def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
         "state_bound_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
-        "least_step_ms": (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
+        "cross_cache_bound_ms": cross_bytes / HBM_BYTES_PER_S * 1e3,
+        "least_step_ms": (weight_bytes + 2 * state_bytes + cross_bytes) / HBM_BYTES_PER_S * 1e3,
         "top_device_ms_per_step": top,
     })
 
@@ -616,19 +811,22 @@ def device_summary(prof, n):
                          for e in top]
 
 
-def profile_prefill(torch, port, params, cfg, dev, n_tok=300):
+def profile_prefill(torch, port, params, cfg, dev, n_tok=300, batch=None, max_len=1024):
     """Where the time of one ``n_tok``-token prefill goes (what a request's
-    TTFT pays once admitted): host-clock ms, device busy, the idle share,
-    the largest kernels; for xLSTM also the host-clock ms of its sLSTM
-    blocks alone (their recurrence runs one eager step per token)."""
+    TTFT pays once admitted), or of one prefill of ``batch`` where given:
+    host-clock ms, device busy, the idle share, the largest kernels; for
+    xLSTM also the host-clock ms of its sLSTM blocks alone (their
+    recurrence runs one eager step per token)."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=dev).manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, (1, n_tok), generator=g, device=dev)
+    if batch is None:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, n_tok), generator=g, device=dev)}
+    B, n_tok = batch["tokens"].shape
 
     def run():
-        cache = port["init_cache"](cfg, 1, 1024, torch.float32, dev)
-        port["prefill"](params, cfg, {"tokens": toks}, cache)
+        cache = port["init_cache"](cfg, B, max_len, torch.float32, dev)
+        port["prefill"](params, cfg, batch, cache)
         torch.cuda.synchronize()
 
     run()
@@ -639,7 +837,8 @@ def profile_prefill(torch, port, params, cfg, dev, n_tok=300):
         run()
     ev, busy_ms, top = device_summary(prof, 1)
     row = {
-        "phase": "prefill_profile", "arch": cfg.name, "prompt_len": n_tok,
+        "phase": "prefill_profile", "arch": cfg.name, "batch": B, "prompt_len": n_tok,
+        "inputs": {k: list(v.shape) for k, v in batch.items()},
         "profiler_saw_device": bool(ev), "prefill_ms": prefill_ms, "device_busy_ms": busy_ms,
         "device_launches": sum(e.count for e in ev),
         "device_idle_share": max(0.0, 1.0 - busy_ms / prefill_ms), "top_device_ms": top,
@@ -712,15 +911,23 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
     prefill, decode_step, init_cache = port["prefill"], port["decode_step"], port["init_cache"]
     lens = torch.tensor(lens)
     B, L = len(lens), int(lens.max())
-    toks = torch.randint(0, cfg.vocab_size, (B, L), generator=torch.Generator().manual_seed(2))
+    cpu_gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (B, L), generator=cpu_gen)
+    extras, P = {}, 0  # the family's stub input at scale 0.1, from the same generator
+    if cfg.family == "encdec":
+        extras["audio_frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=cpu_gen) * 0.1
+    if cfg.frontend == "vision_stub":
+        P = cfg.num_prefix_tokens
+        extras["prefix_embed"] = torch.randn((B, P, cfg.d_model), generator=cpu_gen) * 0.1
     results, routes = {}, {}
     for name, p, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
         records, undo = route_recorder(torch, port["moe"])
+        ex = {k: v.to(d) for k, v in extras.items()}
         try:
-            cache = init_cache(cfg, B, L + 16, torch.float32, d)
-            logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d)}, cache, all_logits=True)
-            last = logits[torch.arange(B, device=d), (lens - 1).to(d)]
-            steps, tok, clen = [last.cpu()], last.argmax(-1), lens.to(d).to(torch.int32)
+            cache = init_cache(cfg, B, P + L + 16, torch.float32, d)
+            logits, cache, _ = prefill(p, cfg, {"tokens": toks.to(d), **ex}, cache, all_logits=True)
+            last = logits[torch.arange(B, device=d), (P + lens - 1).to(d)]
+            steps, tok, clen = [last.cpu()], last.argmax(-1), (P + lens).to(d).to(torch.int32)
             picked = [tok.cpu()]
             for _ in range(4):
                 lg, cache = decode_step(p, cfg, tok[:, None], cache, clen)
@@ -731,9 +938,9 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
             fwd = mtp = None
             if with_forward:  # the fed tokens: the prompt and the first 4 picks
                 seq = torch.cat([toks, torch.stack(picked[:4], 1)], 1).to(d)
-                fwd, _, extras = port["forward"](p, cfg, {"tokens": seq})
+                fwd, _, fx = port["forward"](p, cfg, {"tokens": seq, **ex})
                 fwd = fwd.cpu()
-                mtp = extras["mtp_logits"].cpu() if "mtp_logits" in extras else None
+                mtp = fx["mtp_logits"].cpu() if "mtp_logits" in fx else None
         finally:
             undo()
         results[name] = (torch.stack(steps), torch.stack(picked), fwd, mtp)
@@ -755,6 +962,7 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
         "phase": "consistency", "arch": cfg.name, "n_layers": n_layers, "dtype": "float32",
         "changes": {k: str(v) for k, v in changes.items()},
         "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt_lens": lens.tolist(),
+        "inputs": {k: list(v.shape) for k, v in extras.items()},
         "decode_steps": 4,
         "greedy_tokens_cuda": tk_g.T.tolist(), "greedy_tokens_cpu": tk_c.T.tolist(),
         "tokens_identical": same, "max_abs_logit_err": err,
@@ -784,8 +992,8 @@ def main() -> int:
     from repro_torch.kernels import mamba2_ssd as smod
     from repro_torch.kernels import mlstm as mmod
     from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
-    from repro_torch.models import moe, xlstm
-    from repro_torch.serve import ContinuousEngine, ServeConfig
+    from repro_torch.models import moe, transformer, xlstm
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
     from repro_torch.serve import request_plane as rp
     from repro_torch.storage import KVStore, ObjectStore
     from repro_torch.util import tree_flatten, tree_map
@@ -793,6 +1001,7 @@ def main() -> int:
     port = dict(
         CONFIGS=CONFIGS, decode_step=decode_step, forward=forward, init_cache=init_cache,
         init_params=init_params, prefill=prefill, ContinuousEngine=ContinuousEngine,
+        Engine=Engine, transformer=transformer,
         wrappers={"decode_attention": dmod.decode_attention,
                   "flash_attention": fmod.flash_attention, "ssd": smod.ssd,
                   "mlstm": mmod.mlstm},
@@ -835,6 +1044,10 @@ def main() -> int:
         (deepseek, (), attention),  # MLA: Dv != D takes plain PyTorch by shape
     ):
         launches[cfg.name] = phase_serve(torch, np, port, dev, card, cfg, kernels, idle)
+    whisper, vlm = CONFIGS["whisper-large-v3"], CONFIGS["internvl2-1b"]
+    launches[whisper.name] = phase_whisper(torch, np, port, dev, card, whisper)
+    launches[vlm.name] = phase_serve(torch, np, port, dev, card, vlm, attention)
+    launches[vlm.name + "+prefix"] = phase_vlm_prefix(torch, np, port, dev, card, vlm)
     phase_consistency(torch, port, dev, "llama3-8b", 2, [48, 37])
     phase_consistency(torch, port, dev, "zamba2-1.2b", 7, [200, 200], with_forward=True)
     for n in (200, 137):  # exact-length prefill, as the engine groups xlstm prompts
@@ -845,6 +1058,9 @@ def main() -> int:
         torch, port, dev, "deepseek-v3-671b", 2, [48, 37], with_forward=True,
         moe=dataclasses.replace(ds_moe, num_experts=DEEPSEEK_CHECK_EXPERTS, num_dense_layers=1),
     )
+    phase_consistency(torch, port, dev, "whisper-large-v3", 2, [48, 37], with_forward=True,
+                      n_encoder_layers=2)
+    phase_consistency(torch, port, dev, "internvl2-1b", 2, [48, 37], with_forward=True)
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
@@ -868,8 +1084,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **times(rows[name][0]),
         }
-        if name in ("decode_attention", "flash_attention"):  # at zamba2's and olmoe's shapes too
-            for arch in ("zamba2", "olmoe"):
+        if name in ("decode_attention", "flash_attention"):  # at the other families' shapes too
+            for arch in ("zamba2", "olmoe", "whisper", "internvl2"):
                 entry[arch] = times(next(r for r in rows[name] if r["case"].startswith(arch)))
         kernels.append(entry)
     print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)

@@ -12,7 +12,11 @@ and its sLSTM blocks as ``slstm`` (n_groups, ...); the port keeps one
 ``dense_prefix`` and ``decoder``, are stacked as (n, 1, ...) like a dense
 decoder (experts (n, 1, E, D, F), ``router_bias`` and ``shared`` inside
 each layer's ``moe``); its ``mtp`` head (``proj``, ``norm`` and one
-unstacked ``block`` layer) converts leaf by leaf.
+unstacked ``block`` layer) converts leaf by leaf.  The encdec family
+(whisper) stacks its ``encoder`` and cross-attending ``decoder`` on one
+leading axis, (L, ...), so layer ``i`` is ``leaf[i]``; ``enc_pos``,
+``encoder_norm`` and the learned ``embed.pos`` convert leaf by leaf.  The
+vlm's tree is a dense one.
 Weight layouts are the same on both sides (`wq (D, H, hd)`, `wo (H, hd,
 D)`, `w_gate (D, F)`), so no leaf is transposed.
 
@@ -42,14 +46,18 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """Convert a dense, moe, hybrid or ssm model's JAX parameter tree
-    (leaves as numpy arrays)."""
+    """Convert a model's JAX parameter tree (leaves as numpy arrays)."""
     if cfg.family not in PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(cfg.family)
     conv = lambda a: tensor_from_numpy(a, device)  # noqa: E731
-    stacked = ("decoder", "dense_prefix")
+    stacked = ("decoder", "dense_prefix", "encoder")
     out = {k: tree_map(conv, v) for k, v in tree.items() if k not in stacked}
     dec = tree["decoder"]
+    if cfg.family == "encdec":
+        for name in ("encoder", "decoder"):
+            n = tree_flatten(tree[name])[0][0].shape[0]
+            out[name] = [tree_map(lambda a, i=i: conv(a[i]), tree[name]) for i in range(n)]
+        return out
     if cfg.family == "hybrid":
         per, n_super, n_tail = hybrid_shape(cfg)
         out["decoder"] = {

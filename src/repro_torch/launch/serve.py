@@ -14,8 +14,12 @@ and on the CPU at a reduced width (the plain versions of the kernels):
 
 ``--arch`` takes the dense family (llama3-8b, qwen3-32b, gemma2-27b), the
 MoE family (``--arch olmoe-1b-7b``, ``--arch deepseek-v3-671b`` with MLA),
-the Mamba2 hybrid (``--arch zamba2-1.2b``) and xLSTM (``--arch
-xlstm-1.3b``); other families raise until their slice is ported.
+the Mamba2 hybrid (``--arch zamba2-1.2b``), xLSTM (``--arch xlstm-1.3b``)
+and the VLM ``--arch internvl2-1b``, served text-only (no request carries
+patch embeddings), as the JAX worker serves it.  ``--arch
+whisper-large-v3`` raises ``NotImplementedError``, as the JAX worker does:
+its requests carry no audio frames (``Engine.generate`` with
+``extras={"audio_frames": ...}`` serves whisper).
 
 The worker prints ``READY <engine-id>`` after warmup so orchestrators can
 wait for it, and a stats line on idle exit.  Weights are random, from

@@ -1,12 +1,12 @@
 """GQA/MHA attention block: no cache (full), prefill (cache fill) and decode
-(one token) -- port of `repro.models.attention`.
+(one token), and cross-attention over precomputed encoder K/V (whisper)
+-- port of `repro.models.attention`.
 
 KV-cache layout per layer: {"k": (B, Smax, K, hd), "v": (B, Smax, K, hd)};
 `cache_len` is a scalar (aligned batched serving) or a per-row (B,) int
 tensor (continuous batching: every slot decodes at its own position).  The
 cache is updated in place.  The JAX package's sharding constraints have no
-counterpart on one device; cross-attention (whisper) comes with the
-enc-dec slice.
+counterpart on one device.
 """
 
 from __future__ import annotations
@@ -97,11 +97,22 @@ def attn_apply(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_len=None,  # int, 0-d tensor, or per-row (B,) int tensor
     attend_len: Optional[torch.Tensor] = None,  # decode: decode_lengths(cache_len, ...)
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # encoder k, v
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (out, cache), the cache updated in place."""
+    """Returns (out, cache), the cache updated in place.  With ``cross_kv``
+    only q is projected (no qk-norm, RoPE or softcap, as in JAX) and it
+    attends over the given encoder K/V, non-causally; no cache is touched."""
     B, S, _ = x.shape
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(cfg.hd)
+
+    if cross_kv is not None:
+        q = _proj(x, p["wq"])
+        if cfg.attn_bias:
+            q = q + p["wq_b"]
+        k, v = cross_kv
+        out = ops.flash_attention(q, k, v, causal=False, scale=scale)
+        return _out_proj(out, p["wo"]), None
 
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope and cfg.pos_embedding == "rope":
@@ -136,3 +147,13 @@ def attn_apply(
             q_offset=0, scale=scale,
         )
     return _out_proj(out, p["wo"]), cache
+
+
+def cross_kv_init(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder K/V a decoder layer's cross-attention reads, each (B,
+    S_enc, K, hd) in the encoder output's dtype."""
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if cfg.attn_bias:
+        k = k + p["wk_b"]
+        v = v + p["wv_b"]
+    return k, v

@@ -1,5 +1,6 @@
-"""Model facade for the dense, moe, hybrid and ssm (xLSTM) families: init /
-forward / prefill / decode (port of `repro.models.model`).
+"""Model facade for every family of the JAX package (dense, moe, hybrid,
+ssm (xLSTM), encdec (whisper) and vlm): init / forward / prefill / decode
+(port of `repro.models.model`).
 
 Parameters: {"embed": {"tok": (V, D)}, "final_norm": (D,), "lm_head": (D, V)
 unless tied, "decoder": the stage}.  The dense stage is [per-layer dict,
@@ -12,8 +13,14 @@ an MLA latent dict ({"c_kv", "k_pe"}) when the config has MLA, and an
 and their caches are described in `transformer`.  Caches are updated in
 place.
 
-Other families raise `NotImplementedError` naming the ROADMAP.md slice
-that brings them.
+The batch dict carries the family's inputs: "tokens" (B, S) always;
+"prefix_embed" (B, P, D) for the vlm (precomputed patch embeddings, put
+in front of the text, so prefill returns P + S); "audio_frames" (B,
+S_enc, D) for encdec (precomputed frames).  encdec adds "embed.pos" (a
+learned table of ``max_target_positions`` rows, clamped at its last row),
+"enc_pos", "encoder" and "encoder_norm"; its cache is {"decoder":
+[{"self": kv} per layer]}, and prefill adds each layer's "cross" K/V.  The
+vlm runs the dense stage.
 """
 
 from __future__ import annotations
@@ -35,19 +42,12 @@ from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
 
 Batch = Dict[str, torch.Tensor]
 
-PORTED = ("dense", "moe", "hybrid", "ssm")  # the families the port serves
-_LATER = {
-    "encdec": "slice 4 (whisper enc-dec)",
-    "vlm": "slice 4 (VLM prefix)",
-}
+PORTED = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")  # the families the port serves
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED:
-        later = _LATER.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see ROADMAP.md, {later}"
-        )
+        raise ValueError(cfg.family)
 
 
 def init_params(
@@ -69,6 +69,8 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(generator, cfg.d_model, cfg.vocab_size, **kw)
+    if cfg.pos_embedding == "learned":
+        p["embed"]["pos"] = embed_init(generator, cfg.max_target_positions, cfg.d_model, **kw)
     if cfg.family == "hybrid":
         p["decoder"] = tfm.hybrid_stage_init(generator, cfg, **kw)
     elif cfg.family == "ssm":
@@ -84,7 +86,12 @@ def init_params(
                 "block": tfm.decoder_layer_init(generator, cfg, **kw),
                 "norm": rmsnorm_init(cfg.d_model, **kw),
             }
-    else:
+    elif cfg.family == "encdec":
+        p["enc_pos"] = embed_init(generator, cfg.encoder_seq, cfg.d_model, **kw)
+        p["encoder"] = tfm.encoder_stage_init(generator, cfg, **kw)
+        p["encoder_norm"] = rmsnorm_init(cfg.d_model, **kw)
+        p["decoder"] = tfm.xdecoder_stage_init(generator, cfg, **kw)
+    else:  # dense, vlm
         p["decoder"] = tfm.decoder_stage_init(generator, cfg, cfg.n_layers, **kw)
     return p
 
@@ -107,11 +114,42 @@ def _lm_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return softcap(logits, cfg.final_softcap)
 
 
-def _backbone(p: Params, cfg: ModelConfig, h: torch.Tensor, *, cache=None, **kw):
+def _learned_positions(p: Params, positions: torch.Tensor) -> torch.Tensor:
+    """Rows of the learned position table at ``positions``, clamped at its
+    last row (as JAX clamps them)."""
+    table = p["embed"]["pos"]
+    return table[positions.clamp(max=table.shape[0] - 1)]
+
+
+def _assemble_input(p: Params, cfg: ModelConfig, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (hidden (B, S, D) in ``cfg.dtype``, positions (S,)): the token
+    embeddings behind the vlm's ``prefix_embed`` where the batch has it,
+    plus learned positions clamped at the table's last row."""
+    h = _embed_tokens(p, cfg, batch["tokens"])
+    if cfg.frontend == "vision_stub" and "prefix_embed" in batch:
+        h = torch.cat([batch["prefix_embed"].to(h.dtype), h], dim=1)
+    positions = torch.arange(h.shape[1], device=h.device)
+    if cfg.pos_embedding == "learned":
+        h = h + _learned_positions(p, positions)[None]
+    return h.to(dtype_of(cfg.dtype)), positions
+
+
+def _encode(p: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
+    """The encoder over ``audio_frames`` (B, S_enc, D) -> (B, S_enc, D)."""
+    frames = batch["audio_frames"]
+    h = frames.to(dtype_of(cfg.dtype)) + p["enc_pos"][None, : frames.shape[1]]
+    h = tfm.encoder_stage_apply(p["encoder"], h, cfg)
+    return rmsnorm(h, p["encoder_norm"], eps=cfg.rms_eps)
+
+
+def _backbone(p: Params, cfg: ModelConfig, h: torch.Tensor, *, cache=None, enc_out=None, **kw):
     """Run the family's stages -> (h, aux loss fp32); ``cache`` (the whole
     cache dict, or None) is updated in place."""
     stage = lambda name: None if cache is None else cache[name]  # noqa: E731
-    if cfg.family == "ssm":  # no positions: the recurrences carry them
+    if cfg.family == "encdec":
+        h, _ = tfm.xdecoder_stage_apply(p["decoder"], h, cfg, enc_out=enc_out,
+                                        cache=stage("decoder"), **kw)
+    elif cfg.family == "ssm":  # no positions: the recurrences carry them
         h, _ = tfm.xlstm_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"))
     elif cfg.family == "hybrid":
         h, _ = tfm.hybrid_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"), **kw)
@@ -133,9 +171,9 @@ def forward(p: Params, cfg: ModelConfig, batch: Batch) -> Tuple[torch.Tensor, to
     through one dense layer at positions [0, S - 1)."""
     _check_family(cfg)
     tokens = batch["tokens"]
-    h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, aux = _backbone(p, cfg, h, positions=positions)
+    enc_out = _encode(p, cfg, batch) if cfg.family == "encdec" else None
+    h, positions = _assemble_input(p, cfg, batch)
+    h, aux = _backbone(p, cfg, h, positions=positions, enc_out=enc_out)
     extras: Dict[str, torch.Tensor] = {}
     if cfg.mtp_depth and "mtp" in p:
         mtp = p["mtp"]
@@ -156,8 +194,10 @@ def init_cache(
     cache_dtype=torch.bfloat16,
     device: Union[str, torch.device, None] = None,
 ) -> Dict[str, Any]:
-    """Dense: a KV cache per layer; moe: the same per layer of each stage,
-    or an MLA latent cache when the config has MLA.  Hybrid: a KV cache per super block
+    """Dense and vlm: a KV cache per layer; moe: the same per layer of each
+    stage, or an MLA latent cache when the config has MLA; encdec: a
+    self-attention KV cache per layer, {"self": kv} (prefill adds the
+    cross K/V).  Hybrid: a KV cache per super block
     (the shared block attends once per super block) in ``cache_dtype``, and
     per Mamba layer a conv state and an ssm state, both fp32.  ssm: per
     mLSTM and sLSTM block its recurrent state, all fp32 whatever
@@ -186,6 +226,8 @@ def init_cache(
         cache = {"dense_prefix": [kv() for _ in range(nd)]} if nd else {}
         cache["decoder"] = [kv() for _ in range(cfg.n_layers - nd)]
         return cache
+    if cfg.family == "encdec":
+        return {"decoder": [{"self": kv()} for _ in range(cfg.n_layers)]}
     return {"decoder": [kv() for _ in range(cfg.n_layers)]}
 
 
@@ -205,17 +247,17 @@ def prefill(
     all_logits: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any], int]:
     """Process the prompt; returns (last-token logits, cache, new_len).
+    ``new_len`` counts the vlm's prefix rows with the tokens.
 
     ``all_logits=True`` returns logits for every prompt position (B, S, V):
     the continuous-batching prefill right-pads prompts and takes each
     row's logits at its own last true token."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, _ = _backbone(p, cfg, h, positions=positions, cache=cache, cache_len=0)
+    enc_out = _encode(p, cfg, batch) if cfg.family == "encdec" else None
+    h, positions = _assemble_input(p, cfg, batch)
+    h, _ = _backbone(p, cfg, h, positions=positions, cache=cache, cache_len=0, enc_out=enc_out)
     logits = _lm_logits(p, cfg, h if all_logits else h[:, -1:])
-    return logits, cache, tokens.shape[1]
+    return logits, cache, h.shape[1]
 
 
 def decode_step(
@@ -229,7 +271,8 @@ def decode_step(
 
     A (B,) ``cache_len`` is the continuous-batching form: every row decodes
     at its own position, so positions are (B, 1) and the cache write and
-    the attention mask are per row."""
+    the attention mask are per row.  Learned positions (encdec) are read
+    at ``cache_len``, clamped at the table's last row."""
     _check_family(cfg)
     dev = tokens.device
     h = _embed_tokens(p, cfg, tokens).to(dtype_of(cfg.dtype))
@@ -239,6 +282,8 @@ def decode_step(
     else:
         cache_len = int(cache_len)
         positions = torch.tensor([cache_len], device=dev)
+    if cfg.pos_embedding == "learned":
+        h = h + _learned_positions(p, positions).reshape(-1, 1, cfg.d_model)
     attend_len = None
     if cfg.family != "ssm" and cfg.mla is None:  # xLSTM attends over nothing, MLA masks itself
         attend_len = attn.decode_lengths(cache_len, tokens.shape[0], dev)

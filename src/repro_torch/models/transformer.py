@@ -1,6 +1,6 @@
 """Decoder stages: dense, MoE (with MLA where the config has it), the
-zamba2 hybrid and xLSTM (port of the dense, moe, hybrid and xlstm parts of
-`repro.models.transformer`).
+zamba2 hybrid, xLSTM, and whisper's encoder and cross-attending decoder
+(port of `repro.models.transformer`).
 
 The JAX package stacks layer parameters as (outer, period, ...) and scans
 over them; eagerly, the port keeps a plain list of per-layer dicts in
@@ -12,7 +12,9 @@ layer] * n_tail}.  The xLSTM stage is [{"m": [mLSTM block] * (slstm_every
 - 1), "s": sLSTM block}] * n_groups.  A decoder layer attends with MLA
 when ``cfg.mla`` is set and runs the MoE layer in place of its MLP when
 ``use_moe``; the decoder stage returns the layers' summed MoE aux loss.
-The enc-dec stages come with a later slice.
+The JAX package stacks whisper's encoder and cross-attending decoder on
+one leading axis (L, ...); the port keeps a list of per-layer dicts for
+them too.
 """
 
 from __future__ import annotations
@@ -129,6 +131,92 @@ def decoder_stage_apply(
         if a is not None:
             aux = aux + a
     return h, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# encoder stage (whisper): full attention, no cache
+# ---------------------------------------------------------------------------
+
+def encoder_layer_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, **kw),
+        "ln2": rmsnorm_init(cfg.d_model, **kw),
+        "attn": attn.attn_init(gen, cfg, **kw),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, **kw),
+    }
+
+
+def encoder_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> List[Params]:
+    return [encoder_layer_init(gen, cfg, dtype=dtype, device=device)
+            for _ in range(cfg.n_encoder_layers)]
+
+
+def encoder_stage_apply(layers: List[Params], h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    for lp in layers:
+        x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
+        a, _ = attn.attn_apply(lp["attn"], x, cfg, causal=False, use_rope=False)
+        h = h + a
+        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# cross-decoder stage (whisper decoder: self + cross + mlp)
+# ---------------------------------------------------------------------------
+
+def xdecoder_layer_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, **kw),
+        "ln_x": rmsnorm_init(cfg.d_model, **kw),
+        "ln2": rmsnorm_init(cfg.d_model, **kw),
+        "self_attn": attn.attn_init(gen, cfg, **kw),
+        "cross_attn": attn.attn_init(gen, cfg, **kw),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, **kw),
+    }
+
+
+def xdecoder_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> List[Params]:
+    return [xdecoder_layer_init(gen, cfg, dtype=dtype, device=device)
+            for _ in range(cfg.n_layers)]
+
+
+def xdecoder_stage_apply(
+    layers: List[Params],
+    h: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    enc_out: Optional[torch.Tensor] = None,  # (B, S_enc, D), or None once cached
+    positions: torch.Tensor,
+    cache: Optional[List[Dict]] = None,
+    cache_len=None,
+    attend_len: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+    """Cache: [{"self": kv, "cross": {"k", "v"}}] per layer, updated in
+    place.  A layer whose cache has no "cross" entry (a fresh cache, as
+    `init_cache` makes it) projects the encoder output and stores the
+    result there, in the activations' dtype; later calls read it."""
+    for i, lp in enumerate(layers):
+        c = None if cache is None else cache[i]
+        x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
+        a, _ = attn.attn_apply(
+            lp["self_attn"], x, cfg, positions=positions,
+            cache=None if c is None else c["self"], cache_len=cache_len,
+            attend_len=attend_len, use_rope=False,
+        )
+        h = h + a
+        x = rmsnorm(h, lp["ln_x"], eps=cfg.rms_eps)
+        if c is not None and "cross" in c:
+            ck, cv = c["cross"]["k"], c["cross"]["v"]
+        else:
+            ck, cv = attn.cross_kv_init(lp["cross_attn"], enc_out, cfg)
+            if c is not None:
+                c["cross"] = {"k": ck, "v": cv}
+        a, _ = attn.attn_apply(lp["cross_attn"], x, cfg, cross_kv=(ck, cv))
+        h = h + a
+        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+    return h, cache
 
 
 # ---------------------------------------------------------------------------

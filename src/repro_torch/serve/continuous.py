@@ -31,7 +31,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache_batch_axes, decode_step, init_cache, prefill
-from repro_torch.models.model import PORTED
 from repro_torch.models.cache_update import insert_rows
 from repro_torch.util import tree_flatten
 
@@ -55,10 +54,8 @@ class ContinuousEngine:
     """Slot-based continuous-batching engine over one persistent cache."""
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig, *, device=None) -> None:
-        if cfg.family not in PORTED:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (see ROADMAP.md)"
-            )
+        if cfg.family == "encdec":
+            raise NotImplementedError("encdec serving needs encoder inputs per request")
         self.cfg = cfg
         self.params = params
         self.scfg = scfg

@@ -18,7 +18,7 @@ import struct
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -77,15 +77,26 @@ class Engine:
         self.device = resolve_device(device)
 
     @torch.no_grad()
-    def generate(self, prompts, *, seeds: Optional[List[int]] = None) -> np.ndarray:
-        """prompts: (B, S) ints -> (B, max_new_tokens) int32.  ``seeds`` (one
-        per row, e.g. `request_plane.request_seed(req_id)`) key sampling
-        per request; default ``range(B)``."""
+    def generate(
+        self,
+        prompts,
+        extras: Optional[Dict[str, Any]] = None,
+        *,
+        seeds: Optional[List[int]] = None,
+    ) -> np.ndarray:
+        """prompts: (B, S) ints -> (B, max_new_tokens) int32.  ``extras``
+        joins the batch (``audio_frames`` for whisper, ``prefix_embed`` for
+        the vlm; numpy arrays or tensors, moved to the engine's device).
+        ``seeds`` (one per row, e.g. `request_plane.request_seed(req_id)`)
+        key sampling per request; default ``range(B)``."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
         B = prompts.shape[0]
         scfg = self.scfg
+        batch = {"tokens": prompts}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
         cache = init_cache(self.cfg, B, scfg.max_len, CACHE_DTYPES[scfg.cache_dtype], self.device)
-        logits, cache, clen = prefill(self.params, self.cfg, {"tokens": prompts}, cache)
+        logits, cache, clen = prefill(self.params, self.cfg, batch, cache)
         seeds = list(range(B)) if seeds is None else seeds
         if scfg.temperature <= 0:
             seeds = None

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (attention, Mamba2 SSD, mLSTM) against their
-plain PyTorch versions, on the card; and the MoE layer and MLA, which run
-no kernel of the port, on the card against the CPU.
+plain PyTorch versions, on the card; the MoE layer and MLA, which run no
+kernel of the port, on the card against the CPU; and whisper and the VLM
+prefix (reduced, 2 layers) on the card against the CPU.
 
 Needs an NVIDIA GPU (marked `cuda`; each test skips without one) and
 imports only torch and the port, so it runs where jax is not installed:
@@ -22,6 +23,8 @@ Decode attention is one kernel for every dtype mix (fp32 math), one
 launch per call with a cluster of CTAs per (row, kv head).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -33,7 +36,7 @@ from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
 from repro_torch.kernels import mlstm as mmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.configs import CONFIGS  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.util import tree_map  # noqa: E402
@@ -71,6 +74,10 @@ FLASH_CASES = [
     (2, 150, 150, 8, 8, 32, True, None, None, 0),      # D=32, ragged
     (1, 304, 304, 16, 16, 128, True, None, None, 0),   # olmoe-1b-7b prefill group (MHA)
     (1, 77, 77, 16, 16, 128, True, None, None, 0),     # olmoe, ragged
+    (4, 1500, 1500, 20, 20, 64, False, None, None, 0),  # whisper encoder: full, ragged tail
+    (4, 4, 1500, 20, 20, 64, False, None, None, 0),    # whisper cross-attention, prefill
+    (4, 1, 1500, 20, 20, 64, False, None, None, 0),    # whisper cross-attention, decode
+    (4, 260, 260, 14, 2, 64, True, None, None, 0),     # internvl2: 256-row prefix + 4 tokens
 ]
 DECODE_CASES = [
     # S, H, K, D, window, cap
@@ -83,6 +90,8 @@ DECODE_CASES = [
     (300, 32, 2, 128, None, None),   # group 16
     (1024, 32, 32, 64, None, None),  # zamba2 shared block decode: MHA, D=64
     (1024, 16, 16, 128, None, None),  # olmoe-1b-7b decode: MHA (group 1), D=128
+    (448, 20, 20, 64, None, None),   # whisper self-attention decode (448 positions)
+    (1024, 14, 2, 64, None, None),   # internvl2-1b decode: group 7, D=64
 ]
 
 
@@ -486,3 +495,63 @@ def test_dv_ne_d_attention_launches_no_flash_kernel(cuda, monkeypatch, Sq, dtype
     assert out.dtype == dtype and out.shape == (1, Sq, 8, 128) and out.isfinite().all()
     if dtype == torch.float32:
         assert_matches_plain(out.cpu(), exp)
+
+
+# ---------------------------------------------------------------------------
+# whisper and the VLM prefix: the card against the CPU
+# ---------------------------------------------------------------------------
+
+MODEL_TOL = dict(atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes", [
+    ("whisper-large-v3", dict(encoder_seq=150)),  # a ragged encoder length
+    ("internvl2-1b", dict(num_prefix_tokens=64)),
+])
+def test_whisper_and_vlm_prefix_cuda_match_cpu(cuda, monkeypatch, arch, changes):
+    """Reduced widths at 2 layers (whisper: 2 encoder + 2 decoder), fp32
+    (TF32 off): prefill of two right-padded prompts with the family's stub
+    input, 4 greedy decode steps, then `forward`; identical tokens, logits
+    within 2e-3; on the card the flash and decode kernels ran."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(CONFIGS[arch].reduced(), n_layers=2, **changes)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    lens = torch.tensor([20, 13])
+    B, L = 2, 20
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, L)))
+    extras, P = {}, 0
+    if cfg.family == "encdec":
+        extras["audio_frames"] = torch.from_numpy(
+            rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.1)
+    else:
+        P = cfg.num_prefix_tokens
+        extras["prefix_embed"] = torch.from_numpy(
+            rng.normal(size=(B, P, cfg.d_model)).astype(np.float32) * 0.1)
+    runs = {}
+    launches = (fmod.flash_attention.launches, dmod.decode_attention.launches)
+    cpu = torch.device("cpu")
+    for name, d, p in (("cuda", cuda, tree_map(lambda t: t.to(cuda), p_cpu)), ("cpu", cpu, p_cpu)):
+        ex = {k: v.to(d) for k, v in extras.items()}
+        cache = init_cache(cfg, B, P + L + 8, torch.float32, d)
+        lg, cache, n = prefill(p, cfg, {"tokens": toks.to(d), **ex}, cache, all_logits=True)
+        assert n == P + L
+        last = lg[torch.arange(B, device=d), (P + lens - 1).to(d)]
+        logits, picks, clen = [last.cpu()], [last.argmax(-1).cpu()], (P + lens).to(d).int()
+        for _ in range(4):
+            step, cache = decode_step(p, cfg, picks[-1].to(d)[:, None], cache, clen)
+            clen = clen + 1
+            logits.append(step[:, 0].cpu())
+            picks.append(step[:, 0].argmax(-1).cpu())
+        seq = torch.cat([toks, torch.stack(picks[:4], 1)], 1).to(d)
+        fwd, _, _ = forward(p, cfg, {"tokens": seq, **ex})
+        runs[name] = (torch.stack(logits), torch.stack(picks), fwd.cpu())
+        if name == "cuda":
+            flash = fmod.flash_attention.launches - launches[0]
+            decode = dmod.decode_attention.launches - launches[1]
+            assert flash > 0 and decode > 0, (flash, decode)
+    (lg_g, tk_g, fw_g), (lg_c, tk_c, fw_c) = runs["cuda"], runs["cpu"]
+    assert torch.equal(tk_g, tk_c)
+    torch.testing.assert_close(lg_g, lg_c, **MODEL_TOL)
+    torch.testing.assert_close(fw_g, fw_c, **MODEL_TOL)

@@ -1,5 +1,6 @@
 """The port's model layers and models (dense, MoE with MLA and MTP, zamba2
-hybrid, xLSTM) against the JAX package's.
+hybrid, xLSTM, the vlm text-only) against the JAX package's; whisper and
+the vlm's prefix are in `tests/test_torch_encdec.py`.
 
 Weights come from `repro.models.init_params` at PRNGKey(0), converted by
 `repro_torch.bridge`; inputs are made with numpy from a seed and fed to
@@ -48,6 +49,7 @@ MODEL_CASES = [
     ("zamba2-1.2b", 5),       # hybrid with a tail layer
     ("xlstm-1.3b", None),     # ssm: one group of 3 mLSTM + 1 sLSTM, mLSTM head dim 64
     ("xlstm-1.3b", 8),        # ssm: two groups
+    ("internvl2-1b", None),   # vlm, text only (no prefix_embed): QKV bias, group 2, tied head
 ]
 _CACHE = {}
 
@@ -379,8 +381,10 @@ def test_moe_cache_layout_matches_jax(arch):
     assert all(a == 0 for a in jax.tree_util.tree_leaves(axes))
 
 
-def test_unported_family_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tmodel.init_params(TCONFIGS["whisper-large-v3"].reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tmodel.init_params(TCONFIGS["internvl2-1b"].reduced(), device="cpu")
+def test_unknown_family_raises():
+    """As JAX's `init_params` does: ValueError naming the family."""
+    cfg = dataclasses.replace(TCONFIGS["llama3-8b"].reduced(), family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
+        tmodel.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="retnet"):
+        tmodel.init_cache(cfg, 1, 8, torch.float32, "cpu")

@@ -1,6 +1,6 @@
 """The port's serving plane: continuous batching against the JAX engine (the
-dense, MoE, hybrid and xLSTM families), slot semantics, the copied request
-plane, and the serve CLI on the CPU."""
+dense, MoE, hybrid and xLSTM families, the vlm text-only), slot semantics,
+the copied request plane, and the serve CLI on the CPU."""
 
 import os
 import subprocess
@@ -166,6 +166,31 @@ def test_moe_greedy_tokens_match_jax_continuous_engine(arch):
         assert len(got[r]) == 8 and got[r] == exp[r], r
 
 
+def test_vlm_text_only_greedy_tokens_match_jax_continuous_engine():
+    """internvl2 (reduced) behind the continuous engine: no request carries
+    a prefix, so it serves text only on both sides (QKV bias, GQA group 2,
+    tied head); buckets of 8, one admission mid-batch."""
+    cfg, (jp, tp), kw = _setup("internvl2-1b", max_new_tokens=8)
+    pa, pb, pc = _prompts(cfg, [5, 12, 3], seed=9)
+
+    def drive(eng):
+        eng.admit([("a", pa, 8), ("b", pb, 8)])
+        done, _ = eng.step_chunk(2)
+        eng.admit([("c", pc, 8)])
+        assert eng.stats["mid_batch_admissions"] == 1
+        out = {r: s.out for r, s in done.items()}
+        while eng.n_live():
+            done, _ = eng.step_chunk()
+            out.update({r: s.out for r, s in done.items()})
+        return out
+
+    exp = drive(JContinuousEngine(JCONFIGS["internvl2-1b"].reduced(), jp, JServeConfig(**kw)))
+    got = drive(ContinuousEngine(cfg, tp, ServeConfig(**kw), device="cpu"))
+    assert sorted(got) == ["a", "b", "c"]
+    for r in got:
+        assert len(got[r]) == 8 and got[r] == exp[r], r
+
+
 def test_mid_stream_admission_without_draining():
     cfg, (_, tp), kw = _setup(max_new_tokens=10)
     scfg = ServeConfig(**kw)
@@ -301,6 +326,31 @@ def test_serve_cli_serves_olmoe_on_cpu():
     lines = proc.stdout.splitlines()
     assert lines[0] == "READY engine-0"
     assert "served 4 requests, 16 tokens" in lines[-1]
+
+
+def test_serve_cli_serves_internvl2_text_only_on_cpu():
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "internvl2-1b", "--reduced",
+         "--device", "cpu", "--demo-requests", "4", "--idle-timeout", "0.5",
+         "--new-tokens", "4"],
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "READY engine-0"
+    assert "served 4 requests, 16 tokens" in lines[-1]
+
+
+def test_serve_cli_refuses_whisper_as_the_jax_cli_does():
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "whisper-large-v3",
+         "--reduced", "--device", "cpu", "--demo-requests", "1"],
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0 and "READY" not in proc.stdout
+    assert "NotImplementedError: encdec serving needs encoder inputs per request" in proc.stderr
 
 
 def test_cuda_without_gpu_raises():
