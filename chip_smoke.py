@@ -78,11 +78,30 @@ script exits non-zero:
 4f. the same for whisper width at 2 encoder + 2 decoder layers over 1500
    random audio frames, then ``forward``;
 4g. the same for internvl2 width at 2 layers behind a 256-row prefix, then
-   ``forward``.
+   ``forward``;
+5a. train: llama3-8b at full width and depth (32 layers, bf16, 8.03 B
+   parameters) through ``make_train_step`` with int8 moments, remat, the
+   fused CE and the in-place update, one microbatch of 2 x 1024 tokens,
+   three steps (the last under ``torch.profiler``): losses and grad norms
+   finite, every parameter leaf's gradient nonzero (wq/wk/wv of every layer
+   among them), exactly 2 x 32 flash launches per step (forward and the
+   remat recompute) all on the tensor-core route, peak memory under 75 GB;
+   step time, tokens/s, the device-busy share, the flash forward's device
+   time against the plain attention backward's;
+5b. elastic: llama3-8b width cut to 4 layers through ``train_elastic`` on
+   ``WrenExecutor(num_workers=2)`` over the in-memory store (int8 moments,
+   fused CE, 2 steps per chunk, 6 steps scaled to 3 workers at chunk 1,
+   then a resume to 8): versions 3 then 4, a warm start, and chunk 0 run
+   again after the warm cache is cleared and v1 deleted writes the same
+   leaf bytes; then ``python -m repro_torch.launch.train --arch llama3-8b
+   --reduced --steps 4 --steps-per-chunk 2`` on the card;
+5c. train consistency: llama3-8b width at 2 layers in fp32 (TF32 off), one
+   batch of 128 tokens, the loss and gradients on the card against the CPU,
+   then the int8 optimizer given the same gradients on both devices.
 
 The line before the last lists every kernel (name, route, source, the TPU
-kernel it replaces, launches per serving phase, error and times at the
-serving shapes); the last line is the result object.  Without a GPU, or
+kernel it replaces, launches per serving and training phase, error and
+times at the serving shapes, and flash's at the train step's); the last line is the result object.  Without a GPU, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -443,6 +462,8 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     d("serve", 4, 1024, 8, 4, 128, [332, 48, 305, 17], "bfloat16", "float32")
     f("serve-304", 1, 304, 304, 8, 4, 128, "bfloat16")
     f("serve-16", 1, 16, 16, 8, 4, 128, "bfloat16")
+    # the train step's shape (phase 5a): llama3-8b heads, 2 rows x 1024
+    f("train-2x1024", 2, 1024, 1024, 8, 4, 128, "bfloat16")
     # the serving shapes of phase 3b: zamba2's shared block is MHA (group 1)
     # at head_dim 64; its prefill groups have the exact prompt length; every
     # Mamba layer's scan runs at H=64, P=N=64, G=2 (two full chunks + 44
@@ -796,15 +817,18 @@ def step_profile(torch, cfg, run, n_steps, weight_bytes, state_bytes=0, cross_by
     })
 
 
-def device_summary(prof, n):
+def device_summary(prof, n, annotations=()):
     """(device events, device-busy ms per run, the 8 largest [name, ms per
     run, launches per run]) of a profile over ``n`` runs.  Device-side
-    events only: an operator's entry repeats its kernels' time.  The sum
-    of the events' counts over ``n`` is the device launches per run."""
+    events only: an operator's entry repeats its kernels' time; the
+    device-side copies of ``record_function`` ranges named in
+    ``annotations`` are left out (they span kernels counted already).  The
+    sum of the events' counts over ``n`` is the device launches per run."""
     from torch.autograd import DeviceType
 
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+          and e.key not in annotations]
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     return ev, busy_ms, [[e.key[:80], e.self_device_time_total / 1e3 / n, e.count // n]
@@ -976,6 +1000,317 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
     check(close, f"{arch}: logits differ by {err} (forward {fwd_err}, mtp {mtp_err}) > 2e-3")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3  # phase 5a
+ELASTIC_LAYERS, ELASTIC_SEQ = 4, 512  # phase 5b: llama3-8b width, 1.92 B parameters
+MEM_LIMIT_GB = 75.0  # phase 5a: about 48 GB persistent + one leaf's temporaries
+BWD_RANGE = "attention_backward_plain"  # phase 5a's profiler range over FlashAttentionFn.backward
+
+
+def attention_backward_timer(torch, fmod):
+    """Wrap ``FlashAttentionFn.backward`` (the plain recompute) in a
+    profiler range; -> undo."""
+    from torch.profiler import record_function
+
+    orig = fmod.FlashAttentionFn.backward
+
+    def backward(ctx, grad_out):
+        with record_function(BWD_RANGE):
+            return orig(ctx, grad_out)
+
+    fmod.FlashAttentionFn.backward = staticmethod(backward)
+    return lambda: setattr(fmod.FlashAttentionFn, "backward", staticmethod(orig))
+
+
+def phase_train_step(torch, np, port, dev, card, cfg):
+    """llama3-8b at full width and depth, bf16: int8 moments, remat, the
+    fused CE, one microbatch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens and
+    the in-place update, ``TRAIN_STEPS`` steps; the last one under
+    ``torch.profiler``.  Every loss and grad norm finite; every parameter
+    leaf's gradient nonzero (read from the first moment after step 1,
+    which is (1 - b1) g: its int8 codes are all 0 only where g is);
+    exactly 2 x n_layers flash launches per step (forward and the remat
+    recompute), all on the tensor-core route; peak memory under
+    ``MEM_LIMIT_GB``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr, fmod = port["train"], port["fmod"]
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = tr.adamw(tr.cosine_schedule(3e-4, warmup=1, total=100), quantize_moments=True)
+    state = tr.init_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    persistent = tree_bytes(port, state.params) + tree_bytes(port, (state.opt_state.m,
+                                                                     state.opt_state.v))
+    step_fn = tr.make_train_step(cfg, opt, remat=True, fused_ce=True, inplace=True)
+    dcfg = port["DataConfig"](seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                              vocab_size=cfg.vocab_size)
+    wrappers = port["wrappers"]
+    rows, nonzero = [], None
+    undo = attention_backward_timer(torch, fmod)
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = {k: v.to(dev) for k, v in port["synthetic_batch"](dcfg, i, cfg).items()}
+            profiled = i == TRAIN_STEPS - 1
+            reset_counters(wrappers)
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                if profiled else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if prof is not None:
+                with prof:
+                    state, m = step_fn(state, batch)
+                    torch.cuda.synchronize()
+            else:
+                state, m = step_fn(state, batch)
+                torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            routes = dict(wrappers["flash_attention"].route_launches)
+            row = {"step": i + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "tokens": int(m["tokens"]), "step_s": step_s, "profiled": profiled,
+                   "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "launches": launches,
+                   "flash_route_launches": routes}
+            if i == 0:  # m after step 1 is (1 - b1) g
+                leaves = port["tree_flatten"](state.opt_state.m, is_leaf=lambda x: (
+                    isinstance(x, dict) and set(x) == {"q", "scale"}))[0]
+                nonzero = [bool((leaf["q"] != 0).any()) for leaf in leaves]
+            if prof is not None:
+                from torch.autograd import DeviceType
+
+                ev, busy_ms, top = device_summary(prof, 1, annotations=(BWD_RANGE,))
+                flash_ms = sum(e.self_device_time_total for e in ev if "flash" in e.key) / 1e3
+                bwd = [e for e in prof.events()
+                       if e.name == BWD_RANGE and e.device_type == DeviceType.CPU]
+                unprofiled_ms = rows[-1]["step_s"] * 1e3
+                row.update({
+                    "profiler_saw_device": bool(ev), "device_busy_ms": busy_ms,
+                    "device_busy_share_profiled_step": min(1.0, busy_ms / (step_s * 1e3)),
+                    "device_busy_share_of_step_before": min(1.0, busy_ms / unprofiled_ms),
+                    "flash_forward_device_ms": flash_ms,
+                    "attention_backward_plain_calls": len(bwd),
+                    "attention_backward_plain_device_ms":
+                        sum(e.device_time_total for e in bwd) / 1e3,
+                    "top_device_ms": top,
+                })
+            rows.append(row)
+            emit({"phase": "train_step", "arch": cfg.name, **row})
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in port["tree_flatten"](state.params)[0])
+    qkv_nonzero = nonzero is not None and all(
+        nonzero[i] for i, path in enumerate(param_paths(port, state.params))
+        if path.rsplit(".", 1)[-1] in ("wq", "wk", "wv"))
+    emit({
+        "phase": "train", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+        "params": n_params, "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "microbatches": 1, "quantize_moments": True, "remat": True, "fused_ce": True,
+        "inplace_update": True, "init_s": init_s, "persistent_bytes": persistent,
+        "max_memory_allocated": peak, "mem_limit_gb": MEM_LIMIT_GB,
+        "leaves": len(nonzero or []), "leaves_with_nonzero_grad": sum(nonzero or []),
+        "step_s": [r["step_s"] for r in rows],
+        "losses": [r["loss"] for r in rows], "ln_vocab": float(np.log(cfg.vocab_size)),
+        "card": card,
+    })
+    for r in rows:
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"train step {r['step']}: loss {r['loss']}, grad norm {r['grad_norm']}")
+        check(r["launches"]["flash_attention"] == 2 * L,
+              f"train step {r['step']}: {r['launches']['flash_attention']} flash launches, "
+              f"expected 2 x {L}")
+        check(r["flash_route_launches"]["mma"] == 2 * L,
+              f"train step {r['step']}: flash routes {r['flash_route_launches']}")
+        for name in ("decode_attention", "ssd", "mlstm"):
+            check(r["launches"][name] == 0, f"train step: {name} launched")
+    check(bool(nonzero) and all(nonzero), "a parameter leaf got a zero gradient")
+    check(qkv_nonzero, "wq/wk/wv of some layer got a zero gradient")
+    check(abs(rows[0]["loss"] - np.log(cfg.vocab_size)) < 2.0,
+          f"first loss {rows[0]['loss']} far from ln V")
+    check(rows[-1]["attention_backward_plain_calls"] == L,
+          f"{rows[-1]['attention_backward_plain_calls']} attention backward calls, expected {L}")
+    check(peak < MEM_LIMIT_GB * 1e9, f"peak memory {peak / 1e9:.1f} GB > {MEM_LIMIT_GB} GB")
+    launches = sum(r["launches"]["flash_attention"] for r in rows)
+    del state, m
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches, "decode_attention": 0, "ssd": 0, "mlstm": 0}
+
+
+def param_paths(port, params):
+    """Dotted paths of the parameter leaves, in ``tree_flatten`` order."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}.{k}" if path else k)
+        elif isinstance(node, (list, tuple)):
+            for i, x in enumerate(node):
+                walk(x, f"{path}.{i}")
+        else:
+            out.append(path)
+
+    walk(params, "")
+    return out
+
+
+def leaf_digests(store, prefix):
+    import hashlib
+
+    return {k.split("/leaf/")[1]: hashlib.sha256(store.get_bytes(k)).hexdigest()
+            for k in store.list(prefix) if "/leaf/" in k}
+
+
+def phase_elastic(torch, np, port, dev, card, cfg):
+    """The elastic trainer at llama3-8b width cut to ``ELASTIC_LAYERS``
+    layers, composed as ``launch/train.py`` composes it (int8 moments and
+    the fused CE for the 128256-row head): ``WrenExecutor(num_workers=2)``
+    over the in-memory store, 2 steps per chunk, 6 steps with the pool
+    scaled to 3 at chunk 1, then a resume to 8; then chunk 0 run again
+    after ``WARM_CACHE.clear()`` and the deletion of v1 writes the same
+    leaf bytes (sha256 per leaf blob)."""
+    from functools import partial
+
+    tr, el, ck = port["train"], port["elastic"], port["ckpt"]
+    wrappers = port["wrappers"]
+    dcfg = port["DataConfig"](seq_len=ELASTIC_SEQ, global_batch=TRAIN_BATCH,
+                              vocab_size=cfg.vocab_size)
+    opt = tr.adamw(tr.cosine_schedule(1e-3, warmup=1, total=8), quantize_moments=True)
+    batch_fn = partial(port["synthetic_batch"], dcfg, cfg=cfg)
+    os_env = __import__("os").environ
+    prev_fused = os_env.get("REPRO_FUSED_CE")
+    os_env["REPRO_FUSED_CE"] = "1"
+    wex = port["WrenExecutor"](num_workers=2)
+    reset_counters(wrappers)
+    try:
+        t0 = time.perf_counter()
+        tcfg = el.ElasticTrainConfig(run="smoke", steps_per_chunk=2, total_steps=6,
+                                     keep_checkpoints=5)
+        hist = el.train_elastic(wex, cfg, opt, tcfg, batch_fn, scale_plan={1: 3}, device=dev)
+        v_first = ck.latest_version(wex.store, "smoke")
+        tcfg2 = dataclasses.replace(tcfg, total_steps=8)
+        hist2 = el.train_elastic(wex, cfg, opt, tcfg2, batch_fn, device=dev)
+        v_resumed = ck.latest_version(wex.store, "smoke")
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        store = wex.store
+        before = leaf_digests(store, "ckpt/smoke/v00000001/")
+        version_bytes = sum(len(store.get_bytes(k)) for k in store.list("ckpt/smoke/v00000001/")
+                            if "/leaf/" in k)
+        el.WARM_CACHE.clear()
+        store.delete_prefix("ckpt/smoke/v00000001/")
+        torch.cuda.empty_cache()
+        el.make_chunk_fn(cfg, opt, store, tcfg, batch_fn, dev)(0)
+        after = leaf_digests(store, "ckpt/smoke/v00000001/")
+    finally:
+        wex.shutdown()
+        el.WARM_CACHE.clear()
+        if prev_fused is None:
+            os_env.pop("REPRO_FUSED_CE", None)
+        else:
+            os_env["REPRO_FUSED_CE"] = prev_fused
+    same = before == after
+    hist = hist + hist2
+    emit({
+        "phase": "elastic", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": TRAIN_BATCH, "seq": ELASTIC_SEQ, "steps_per_chunk": 2, "chunks": len(hist),
+        "latest_version": v_first, "latest_version_after_resume": v_resumed,
+        "warm_starts": sum(h["warm_start"] for h in hist),
+        "losses": [h["loss"] for h in hist], "wall_s": wall, "launches": launches,
+        "version_leaf_bytes": version_bytes, "leaf_blobs": len(before),
+        "duplicate_chunk_bytes_identical": same, "card": card,
+    })
+    check(v_first == 3 and v_resumed == 4, f"elastic versions {v_first}, {v_resumed}; "
+                                           "expected 3 then 4")
+    check(sum(h["warm_start"] for h in hist) >= 1, "no warm start")
+    check(all(np.isfinite(h["loss"]) for h in hist), "a non-finite elastic loss")
+    check(len(before) > 0 and same, "the duplicate chunk wrote other leaf bytes")
+    check(launches["flash_attention"] > 0, "the elastic run launched no flash kernel")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_launch_train(card):
+    """``python -m repro_torch.launch.train`` on the card, reduced."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3-8b",
+           "--reduced", "--steps", "4", "--steps-per-chunk", "2"]
+    env = dict(__import__("os").environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
+    lines = proc.stdout.strip().splitlines()
+    emit({"phase": "launch_train", "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+          "wall_s": time.perf_counter() - t0, "stdout": lines[-3:], "card": card})
+    check(proc.returncode == 0, f"launch.train failed: {proc.stderr[-2000:]}")
+    check(bool(lines) and lines[-1].endswith("checkpoint v2"), f"launch.train printed {lines}")
+
+
+def phase_train_consistency(torch, np, port, dev, card, n_layers=2, seq=128):
+    """llama3-8b width cut to ``n_layers`` layers in fp32 (TF32 off), the
+    same parameters and one batch on the card and the CPU, remat and the
+    fused CE: the loss within 1e-5 relative, each leaf's gradient within
+    1e-3 of its largest |g|; then the int8 optimizer given the CPU's
+    gradients on both devices: the same codes (ties counted), scales within
+    1e-7 and updates within 1e-6 relative."""
+    tr, ts = port["train"], port["train_step"]
+    cfg = dataclasses.replace(port["CONFIGS"]["llama3-8b"], n_layers=n_layers,
+                              dtype="float32", param_dtype="float32")
+    p_gpu = port["init_params"](cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    p_cpu = port["tree_map"](lambda t: t.cpu(), p_gpu)
+    dcfg = port["DataConfig"](seq_len=seq, global_batch=1, vocab_size=cfg.vocab_size)
+    batch = port["synthetic_batch"](dcfg, 0, cfg)
+    loss_fn = ts.make_loss_fn(cfg, remat=True, fused_ce=True)
+    g_gpu, m_gpu = ts.grad_fn(loss_fn, p_gpu, {k: v.to(dev) for k, v in batch.items()})
+    g_gpu = [g.cpu() for g in g_gpu]
+    g_cpu, m_cpu = ts.grad_fn(loss_fn, p_cpu, batch)
+    loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    grad_ratio = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                     for a, b in zip(g_gpu, g_cpu))
+    opt = tr.adamw(1e-3, quantize_moments=True)
+    struct = port["tree_flatten"](p_cpu)[1]
+    grads = port["tree_unflatten"](struct, g_cpu)
+    u_c, s_c = opt.update(grads, opt.init(p_cpu), p_cpu)
+    u_g, s_g = opt.update(port["tree_map"](lambda t: t.to(dev), grads), opt.init(p_gpu), p_gpu)
+    code_diffs, code_max, scale_err, upd_ratio = 0, 0, 0.0, 0.0
+    for a, b in zip(port["tree_flatten"]((s_g.m, s_g.v))[0], port["tree_flatten"]((s_c.m, s_c.v))[0]):
+        a = a.cpu()
+        if b.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            code_diffs += int((d > 0).sum())
+            code_max = max(code_max, int(d.max()))
+        else:
+            scale_err = max(scale_err, float((a - b).abs().max()))
+    for a, b in zip(port["tree_flatten"](u_g)[0], port["tree_flatten"](u_c)[0]):
+        upd_ratio = max(upd_ratio, float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    n_codes = sum(t.numel() for t in port["tree_flatten"]((s_c.m, s_c.v))[0]
+                  if t.dtype == torch.int8)
+    ok = loss_err <= 1e-5 and grad_ratio <= 1e-3 and code_max <= 1 and scale_err <= 1e-7 \
+        and upd_ratio <= 1e-6
+    emit({
+        "phase": "train_consistency", "arch": cfg.name, "n_layers": n_layers, "seq": seq,
+        "dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "loss_cuda": float(m_gpu["loss"]), "loss_cpu": float(m_cpu["loss"]),
+        "loss_rel_err": loss_err, "grad_err_over_leaf_max": grad_ratio,
+        "int8_codes": n_codes, "int8_codes_one_apart": code_diffs, "int8_code_max_diff": code_max,
+        "scale_max_abs_err": scale_err, "update_err_over_leaf_max": upd_ratio,
+        "tol": {"loss_rel": 1e-5, "grad_over_leaf_max": 1e-3, "scale_abs": 1e-7,
+                "update_over_leaf_max": 1e-6},
+        "ok": ok, "card": card,
+    })
+    check(loss_err <= 1e-5, f"train loss differs by {loss_err} relative between cuda and cpu")
+    check(grad_ratio <= 1e-3, f"gradients differ by {grad_ratio} of their leaf's max")
+    check(code_max <= 1 and scale_err <= 1e-7 and upd_ratio <= 1e-6,
+          f"int8 optimizer: codes {code_diffs} apart (max {code_max}), scales {scale_err}, "
+          f"updates {upd_ratio}")
+    del p_gpu, u_g, s_g
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -996,7 +1331,12 @@ def main() -> int:
     from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
     from repro_torch.serve import request_plane as rp
     from repro_torch.storage import KVStore, ObjectStore
-    from repro_torch.util import tree_flatten, tree_map
+    from repro_torch import train
+    from repro_torch.core import WrenExecutor
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic, train_step
+    from repro_torch.util import tree_flatten, tree_map, tree_unflatten
 
     port = dict(
         CONFIGS=CONFIGS, decode_step=decode_step, forward=forward, init_cache=init_cache,
@@ -1007,6 +1347,9 @@ def main() -> int:
                   "mlstm": mmod.mlstm},
         ServeConfig=ServeConfig, rp=rp, KVStore=KVStore, ObjectStore=ObjectStore,
         tree_flatten=tree_flatten, tree_map=tree_map, xlstm=xlstm, moe=moe,
+        train=train, train_step=train_step, elastic=elastic, ckpt=ckpt, fmod=fmod,
+        DataConfig=DataConfig, synthetic_batch=synthetic_batch, WrenExecutor=WrenExecutor,
+        tree_unflatten=tree_unflatten,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1061,6 +1404,12 @@ def main() -> int:
     phase_consistency(torch, port, dev, "whisper-large-v3", 2, [48, 37], with_forward=True,
                       n_encoder_layers=2)
     phase_consistency(torch, port, dev, "internvl2-1b", 2, [48, 37], with_forward=True)
+    llama = CONFIGS["llama3-8b"]
+    launches["llama3-8b-train"] = phase_train_step(torch, np, port, dev, card, llama)
+    launches["llama3-8b-elastic"] = phase_elastic(
+        torch, np, port, dev, card, dataclasses.replace(llama, n_layers=ELASTIC_LAYERS))
+    phase_launch_train(card)
+    phase_train_consistency(torch, np, port, dev, card)
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
@@ -1087,6 +1436,8 @@ def main() -> int:
         if name in ("decode_attention", "flash_attention"):  # at the other families' shapes too
             for arch in ("zamba2", "olmoe", "whisper", "internvl2"):
                 entry[arch] = times(next(r for r in rows[name] if r["case"].startswith(arch)))
+        if name == "flash_attention":  # the train step's shape (phase 5a)
+            entry["train"] = times(next(r for r in rows[name] if r["case"] == "train-2x1024"))
         kernels.append(entry)
     print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     emit({"kernels": kernels})

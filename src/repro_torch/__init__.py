@@ -8,11 +8,21 @@ modules it needs.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for ``cuda`` without a GPU raises (see :func:`resolve_device`).
+
+Importing the package sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless the
+environment already names one: the elastic trainer's chunks run under
+``torch.use_deterministic_algorithms(True)``, which on CUDA needs that
+workspace configuration, and PyTorch reads it once, before the process's
+first cuBLAS call.
 """
 
 from __future__ import annotations
 
-import torch
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 
 def resolve_device(device=None) -> torch.device:

@@ -100,6 +100,22 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def no_backward(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``kernel``: the CUDA
+    kernels are forward-only (the JAX package has no backward kernel
+    either), and a launch through raw pointers returns a tensor with no
+    ``grad_fn``, so the gradients of its inputs would silently be lost."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel is forward-only and an input requires grad; "
+            "run it under torch.no_grad(), or differentiate through its plain version"
+        )
+
+
 def ptxas_report(name: str) -> Optional[str]:
     """The ``ptxas -v`` lines of the last build of ``name`` (registers,
     shared memory, stack and spills per kernel), if any."""

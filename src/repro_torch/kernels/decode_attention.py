@@ -115,6 +115,7 @@ def decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _build.no_backward("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, cache_len)
     B, H, D = q.shape
     _, S, K, _ = k_cache.shape

@@ -174,6 +174,7 @@ def ssd(
         return ssd_plain(x, dt, A, Bmat, Cmat, D, chunk=chunk, return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {x.device}")
+    _build.no_backward("ssd", x, dt, A, Bmat, Cmat, D)
     _check(x, dt, A, Bmat, Cmat, D, chunk)
     Bz, S, H, P = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]

@@ -130,9 +130,13 @@ def _mlstm_chunked(q, k, v, i_gate, f_gate, block_k: int):
         dexp = torch.where(mask, torch.exp(dmat - m_new[:, :, None, :]), 0.0)
         w = torch.einsum("bqhd,bshd->bqsh", qf[:, r0:], kb) * dexp
         corr = torch.exp(m_old - m_new)
-        l[:, r0:] = l[:, r0:] * corr + w.sum(dim=2)
-        acc[:, r0:] = acc[:, r0:] * corr[..., None] + torch.einsum("bqsh,bshd->bqhd", w, vb)
-        m[:, r0:] = m_new
+        # rows [r0:) take the new running values out of place (autograd
+        # saves the old ones: a train step differentiates through here)
+        l = torch.cat([l[:, :r0], l[:, r0:] * corr + w.sum(dim=2)], dim=1)
+        acc = torch.cat(
+            [acc[:, :r0], acc[:, r0:] * corr[..., None] + torch.einsum("bqsh,bshd->bqhd", w, vb)],
+            dim=1)
+        m = torch.cat([m[:, :r0], m_new], dim=1)
     denom = torch.maximum(l.abs(), torch.exp(-m))
     return (acc / denom[..., None]).to(q.dtype)
 
@@ -199,6 +203,7 @@ def mlstm(
         return mlstm_plain(q, k, v, i_gate, f_gate)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm: unsupported device {q.device}")
+    _build.no_backward("mlstm", q, k, v, i_gate, f_gate)
     _check(q, k, v, i_gate, f_gate)
     B, S, H, D = q.shape
     Fc = gate_cumsum(f_gate)

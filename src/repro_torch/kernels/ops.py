@@ -8,6 +8,12 @@ on any device call ``ref`` (or the kernel modules' ``*_plain``) directly.
 ``ssd_decode_step`` and ``mlstm_decode_step`` are plain PyTorch on every
 device: the JAX package has no kernel for them either.
 
+A CUDA flash attention call that autograd must differentiate (grad mode on
+and an input requiring grad: the train step) runs the kernel inside
+``FlashAttentionFn``, whose backward recomputes through the plain version;
+every other call goes to the wrapper as it is, so serving launches are
+unchanged.  On the CPU the plain version is differentiable as it stands.
+
 Attention whose value head dim differs from the query's (MLA: Dqk 192,
 Dv 128) is sent to plain PyTorch by shape on every device, as the JAX
 dispatch sends it to its jnp paths: the naive reference up to Sq * Sk <=
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from . import ref
 from .decode_attention import decode_attention
+from .flash_attention import FlashAttentionFn
 from .flash_attention import flash_attention as flash_attention_kernel
 from .mamba2_ssd import ssd as ssd_scan
 from .mlstm import mlstm as mlstm_parallel
@@ -105,11 +112,15 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, Sq, H, D) x (B, Sk, K, D) x (B, Sk, K, Dv) -> (B, Sq, H, Dv) in
     q's dtype.  Dv == D: the kernel's wrapper (the CUDA kernel on a CUDA
-    tensor, its plain version on a CPU one).  Dv != D: plain PyTorch on
+    tensor, through ``FlashAttentionFn`` where autograd needs its
+    gradient; its plain version on a CPU one).  Dv != D: plain PyTorch on
     every device, the reference up to Sq * Sk <= 256^2, else the chunked
     scan."""
     kw = dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset)
     if v.shape[-1] == q.shape[-1]:
+        if (q.device.type == "cuda" and torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+            return FlashAttentionFn.apply(q, k, v, dict(scale=scale, **kw), flash_attention_kernel)
         return flash_attention_kernel(q, k, v, scale=scale, **kw)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] * k.shape[1] <= 256 * 256:

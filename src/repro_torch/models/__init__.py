@@ -8,6 +8,7 @@ from .model import (
     cache_batch_axes,
     decode_step,
     forward,
+    forward_hidden,
     head_weight,
     init_cache,
     init_params,
@@ -27,6 +28,7 @@ __all__ = [
     "cache_batch_axes",
     "decode_step",
     "forward",
+    "forward_hidden",
     "head_weight",
     "init_cache",
     "init_params",

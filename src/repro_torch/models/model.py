@@ -134,57 +134,85 @@ def _assemble_input(p: Params, cfg: ModelConfig, batch: Batch) -> Tuple[torch.Te
     return h.to(dtype_of(cfg.dtype)), positions
 
 
-def _encode(p: Params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
+def _encode(p: Params, cfg: ModelConfig, batch: Batch, *, remat: bool = False) -> torch.Tensor:
     """The encoder over ``audio_frames`` (B, S_enc, D) -> (B, S_enc, D)."""
     frames = batch["audio_frames"]
     h = frames.to(dtype_of(cfg.dtype)) + p["enc_pos"][None, : frames.shape[1]]
-    h = tfm.encoder_stage_apply(p["encoder"], h, cfg)
+    h = tfm.encoder_stage_apply(p["encoder"], h, cfg, remat=remat)
     return rmsnorm(h, p["encoder_norm"], eps=cfg.rms_eps)
 
 
-def _backbone(p: Params, cfg: ModelConfig, h: torch.Tensor, *, cache=None, enc_out=None, **kw):
+def _backbone(p: Params, cfg: ModelConfig, h: torch.Tensor, *, cache=None, enc_out=None,
+              remat: bool = False, **kw):
     """Run the family's stages -> (h, aux loss fp32); ``cache`` (the whole
-    cache dict, or None) is updated in place."""
+    cache dict, or None) is updated in place.  ``remat`` recomputes each
+    layer in the backward pass (no-cache forward only)."""
     stage = lambda name: None if cache is None else cache[name]  # noqa: E731
     if cfg.family == "encdec":
         h, _ = tfm.xdecoder_stage_apply(p["decoder"], h, cfg, enc_out=enc_out,
-                                        cache=stage("decoder"), **kw)
+                                        cache=stage("decoder"), remat=remat, **kw)
     elif cfg.family == "ssm":  # no positions: the recurrences carry them
-        h, _ = tfm.xlstm_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"))
+        h, _ = tfm.xlstm_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"), remat=remat)
     elif cfg.family == "hybrid":
-        h, _ = tfm.hybrid_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"), **kw)
+        h, _ = tfm.hybrid_stage_apply(p["decoder"], h, cfg, cache=stage("decoder"),
+                                      remat=remat, **kw)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if "dense_prefix" in p:
             h, _, aux = tfm.decoder_stage_apply(
-                p["dense_prefix"], h, cfg, cache=stage("dense_prefix"), **kw)
+                p["dense_prefix"], h, cfg, cache=stage("dense_prefix"), remat=remat, **kw)
         h, _, a = tfm.decoder_stage_apply(
-            p["decoder"], h, cfg, cache=stage("decoder"), use_moe=cfg.family == "moe", **kw)
+            p["decoder"], h, cfg, cache=stage("decoder"), use_moe=cfg.family == "moe",
+            remat=remat, **kw)
         return h, aux + a
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def forward(p: Params, cfg: ModelConfig, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """Full-sequence forward -> (logits (B, S, V) fp32, MoE aux loss fp32,
-    extras).  With an MTP head (deepseek) ``extras["mtp_logits"]`` (B, S -
-    1, V) predicts token t + 2 from [rmsnorm(h_t) | embed(token t + 1)]
-    through one dense layer at positions [0, S - 1)."""
+def _forward_trunk(p: Params, cfg: ModelConfig, batch: Batch, *, remat: bool = False):
+    """-> (h before the final norm, MoE aux loss fp32, the MTP head's hidden
+    state or None).  With an MTP head (deepseek) the hidden state (B, S -
+    1, D) comes from [rmsnorm(h_t) | embed(token t + 1)] through one dense
+    layer at positions [0, S - 1); it predicts token t + 2."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    enc_out = _encode(p, cfg, batch) if cfg.family == "encdec" else None
+    enc_out = _encode(p, cfg, batch, remat=remat) if cfg.family == "encdec" else None
     h, positions = _assemble_input(p, cfg, batch)
-    h, aux = _backbone(p, cfg, h, positions=positions, enc_out=enc_out)
-    extras: Dict[str, torch.Tensor] = {}
+    h, aux = _backbone(p, cfg, h, positions=positions, enc_out=enc_out, remat=remat)
+    h_mtp = None
     if cfg.mtp_depth and "mtp" in p:
         mtp = p["mtp"]
-        emb_next = _embed_tokens(p, cfg, tokens)[:, 1:]  # the parameters' dtype, as in JAX
+        emb_next = _embed_tokens(p, cfg, batch["tokens"])[:, 1:]  # the parameters' dtype, as in JAX
         cat = torch.cat([rmsnorm(h[:, :-1], mtp["norm"], eps=cfg.rms_eps), emb_next], dim=-1)
         h_mtp, _, _ = tfm.decoder_layer_apply(
             mtp["block"], cat @ mtp["proj"], cfg,
             window=None, positions=positions[:-1], cache=None, cache_len=None,
         )
+    return h, aux, h_mtp
+
+
+def forward(p: Params, cfg: ModelConfig, batch: Batch, *,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Full-sequence forward (train / eval) -> (logits (B, S, V) fp32, MoE
+    aux loss fp32, extras).  With an MTP head (deepseek)
+    ``extras["mtp_logits"]`` (B, S - 1, V) predicts token t + 2 (see
+    `_forward_trunk`).  ``remat`` recomputes each layer in the backward
+    pass, saving only the layers' inputs (the JAX default policy)."""
+    h, aux, h_mtp = _forward_trunk(p, cfg, batch, remat=remat)
+    extras: Dict[str, torch.Tensor] = {}
+    if h_mtp is not None:
         extras["mtp_logits"] = _lm_logits(p, cfg, h_mtp)
     return _lm_logits(p, cfg, h), aux, extras
+
+
+def forward_hidden(p: Params, cfg: ModelConfig, batch: Batch, *,
+                   remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """`forward` without the head matmul -> (final-normed h (B, S, D), aux,
+    extras with ``mtp_hidden``, final-normed too), for the fused
+    (vocab-chunked) loss."""
+    h, aux, h_mtp = _forward_trunk(p, cfg, batch, remat=remat)
+    extras: Dict[str, torch.Tensor] = {}
+    if h_mtp is not None:
+        extras["mtp_hidden"] = rmsnorm(h_mtp, p["final_norm"], eps=cfg.rms_eps)
+    return rmsnorm(h, p["final_norm"], eps=cfg.rms_eps), aux, extras
 
 
 def init_cache(

@@ -15,6 +15,12 @@ when ``cfg.mla`` is set and runs the MoE layer in place of its MLP when
 The JAX package stacks whisper's encoder and cross-attending decoder on
 one leading axis (L, ...); the port keeps a list of per-layer dicts for
 them too.
+
+``remat`` (no-cache forward only) wraps each layer or block in
+``torch.utils.checkpoint`` (non-reentrant): the backward pass recomputes
+it from its input, which is all that is saved -- the JAX package's default
+policy ``nothing`` (``REPRO_REMAT_POLICY``), applied per layer where JAX
+applies it per scanned period.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -31,6 +38,14 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import xlstm as xl
 from .layers import Params, _normal, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+
+
+def _call(fn, remat: bool, *args, **kw):
+    """``fn(*args, **kw)``; under ``remat`` recomputed in the backward pass
+    from its inputs instead of saving its activations."""
+    if not remat:
+        return fn(*args, **kw)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def layer_period(cfg: ModelConfig) -> int:
@@ -118,12 +133,13 @@ def decoder_stage_apply(
     cache_len=None,
     attend_len: Optional[torch.Tensor] = None,
     use_moe: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
     """-> (h, cache, the layers' summed MoE aux loss, fp32 0 without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(layers):
-        h, _, a = decoder_layer_apply(
-            lp, h, cfg,
+        h, _, a = _call(
+            decoder_layer_apply, remat and cache is None, lp, h, cfg,
             window=layer_window(cfg, i), positions=positions,
             cache=None if cache is None else cache[i], cache_len=cache_len,
             attend_len=attend_len, use_moe=use_moe,
@@ -152,12 +168,17 @@ def encoder_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cp
             for _ in range(cfg.n_encoder_layers)]
 
 
-def encoder_stage_apply(layers: List[Params], h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encoder_layer_apply(lp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
+    a, _ = attn.attn_apply(lp["attn"], x, cfg, causal=False, use_rope=False)
+    h = h + a
+    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+
+
+def encoder_stage_apply(layers: List[Params], h: torch.Tensor, cfg: ModelConfig, *,
+                        remat: bool = False) -> torch.Tensor:
     for lp in layers:
-        x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
-        a, _ = attn.attn_apply(lp["attn"], x, cfg, causal=False, use_rope=False)
-        h = h + a
-        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+        h = _call(encoder_layer_apply, remat, lp, h, cfg)
     return h
 
 
@@ -182,6 +203,38 @@ def xdecoder_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="c
             for _ in range(cfg.n_layers)]
 
 
+def xdecoder_layer_apply(
+    lp: Params,
+    h: torch.Tensor,
+    cfg: ModelConfig,
+    c: Optional[Dict],
+    enc_out: Optional[torch.Tensor],
+    *,
+    positions: torch.Tensor,
+    cache_len=None,
+    attend_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Self-attention, cross-attention over the encoder output (or the
+    layer cache ``c``'s "cross" K/V), MLP."""
+    x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
+    a, _ = attn.attn_apply(
+        lp["self_attn"], x, cfg, positions=positions,
+        cache=None if c is None else c["self"], cache_len=cache_len,
+        attend_len=attend_len, use_rope=False,
+    )
+    h = h + a
+    x = rmsnorm(h, lp["ln_x"], eps=cfg.rms_eps)
+    if c is not None and "cross" in c:
+        ck, cv = c["cross"]["k"], c["cross"]["v"]
+    else:
+        ck, cv = attn.cross_kv_init(lp["cross_attn"], enc_out, cfg)
+        if c is not None:
+            c["cross"] = {"k": ck, "v": cv}
+    a, _ = attn.attn_apply(lp["cross_attn"], x, cfg, cross_kv=(ck, cv))
+    h = h + a
+    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+
+
 def xdecoder_stage_apply(
     layers: List[Params],
     h: torch.Tensor,
@@ -192,30 +245,18 @@ def xdecoder_stage_apply(
     cache: Optional[List[Dict]] = None,
     cache_len=None,
     attend_len: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
     """Cache: [{"self": kv, "cross": {"k", "v"}}] per layer, updated in
     place.  A layer whose cache has no "cross" entry (a fresh cache, as
     `init_cache` makes it) projects the encoder output and stores the
     result there, in the activations' dtype; later calls read it."""
     for i, lp in enumerate(layers):
-        c = None if cache is None else cache[i]
-        x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
-        a, _ = attn.attn_apply(
-            lp["self_attn"], x, cfg, positions=positions,
-            cache=None if c is None else c["self"], cache_len=cache_len,
-            attend_len=attend_len, use_rope=False,
+        h = _call(
+            xdecoder_layer_apply, remat and cache is None, lp, h, cfg,
+            None if cache is None else cache[i], enc_out,
+            positions=positions, cache_len=cache_len, attend_len=attend_len,
         )
-        h = h + a
-        x = rmsnorm(h, lp["ln_x"], eps=cfg.rms_eps)
-        if c is not None and "cross" in c:
-            ck, cv = c["cross"]["k"], c["cross"]["v"]
-        else:
-            ck, cv = attn.cross_kv_init(lp["cross_attn"], enc_out, cfg)
-            if c is not None:
-                c["cross"] = {"k": ck, "v": cv}
-        a, _ = attn.attn_apply(lp["cross_attn"], x, cfg, cross_kv=(ck, cv))
-        h = h + a
-        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
     return h, cache
 
 
@@ -285,21 +326,25 @@ def hybrid_stage_apply(
     cache: Optional[Dict] = None,
     cache_len=None,
     attend_len: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Cache: {"super": [{"mamba": [state] * per, "attn": kv}] * n_super,
     "tail": [state] * n_tail}, updated in place."""
     h0 = h
+    remat = remat and cache is None
     for o, block in enumerate(params["super"]):
         c = None if cache is None else cache["super"][o]
         for i, lp in enumerate(block):
-            out, _ = mb.mamba2_apply(lp, h, cfg, state=None if c is None else c["mamba"][i])
+            out, _ = _call(mb.mamba2_apply, remat, lp, h, cfg,
+                           state=None if c is None else c["mamba"][i])
             h = h + out
-        h = shared_attn_block_apply(
-            params["shared"], h, h0, cfg, positions=positions,
+        h = _call(
+            shared_attn_block_apply, remat, params["shared"], h, h0, cfg, positions=positions,
             cache=None if c is None else c["attn"], cache_len=cache_len, attend_len=attend_len,
         )
     for i, lp in enumerate(params["tail"]):
-        out, _ = mb.mamba2_apply(lp, h, cfg, state=None if cache is None else cache["tail"][i])
+        out, _ = _call(mb.mamba2_apply, remat, lp, h, cfg,
+                       state=None if cache is None else cache["tail"][i])
         h = h + out
     return h, cache
 
@@ -332,12 +377,16 @@ def xlstm_stage_apply(
     cfg: ModelConfig,
     *,
     cache: Optional[List[Dict]] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
     """Cache: [{"m": [mLSTM state] * n_m, "s": sLSTM state}] * n_groups,
     updated in place."""
+    remat = remat and cache is None
     for g, grp in enumerate(groups):
         c = None if cache is None else cache[g]
         for i, lp in enumerate(grp["m"]):
-            h, _ = xl.mlstm_block_apply(lp, h, cfg, state=None if c is None else c["m"][i])
-        h, _ = xl.slstm_block_apply(grp["s"], h, cfg, state=None if c is None else c["s"])
+            h, _ = _call(xl.mlstm_block_apply, remat, lp, h, cfg,
+                         state=None if c is None else c["m"][i])
+        h, _ = _call(xl.slstm_block_apply, remat, grp["s"], h, cfg,
+                     state=None if c is None else c["s"])
     return h, cache

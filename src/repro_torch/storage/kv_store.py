@@ -1,20 +1,22 @@
 """Redis-semantics low-latency KV store: the coordination plane.
 
-The in-memory `KVStore` of `repro.storage.kv_store`, cut down to the verbs
-the serving request plane uses (`mget`, `scan`, `eval_many`, `rpush`,
-`rpush_many`, `rpush_nowait`, `lpop_n`, `blpop`, `lrange`, `llen`,
-`shard_seq`, `wait_key`) and copied so that the port imports nothing of the
-JAX package; the file-log and wire tiers come with a later slice.
+The in-memory `KVStore` of `repro.storage.kv_store`, copied so that the port
+imports nothing of the JAX package: every verb the serving request plane and
+the runtime (`repro_torch.core`: scheduler, jobs) call.  The append-only log
+framing, the file-log tier and the wire tier come with a later slice.
 
   * sharded keyspace (crc32 over N shards), one lock per shard;
-  * ``eval_many`` -- pipelined server-side scripting (Redis EVAL): each
+  * atomic single-key ops: get/set/setnx/incr;
+  * ``eval`` / ``eval_many`` -- server-side scripting (Redis EVAL): each
     update runs atomically per key under its shard lock; an update may
     return :data:`DELETE` to delete the key in the same step;
-  * batched verbs group their keys by shard and are charged one amortized
+  * batched verbs (``mget``, ``mset``, ``mdel``, ``rpush_many``,
+    ``eval_many``) group their keys by shard and are charged one amortized
     round-trip per shard touched; each touched shard's sequence is bumped
     once per batch;
   * per-shard watch conditions: consumers snapshot ``shard_seq(key)``,
-    check, then block in ``wait_key`` (keyed wakes) or ``blpop``.
+    check, then block in ``wait_key`` (keyed wakes) or ``blpop``;
+    ``notify_key`` wakes a key's watchers without a write.
 
 Each op is charged virtual wire time from a
 :class:`~repro_torch.storage.perf_model.StorageProfile` and recorded per
@@ -32,6 +34,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 from .object_store import Ledger, OpRecord, _Endpoint
 from .perf_model import REDIS_2017, StorageProfile
+
+_TOMBSTONE = object()
 
 # Sentinel an ``eval``/``eval_many`` update function may return to delete
 # the key atomically instead of storing a value — the Redis-script idiom
@@ -219,7 +223,28 @@ class KVStore(_Endpoint):
                 return True
         return False
 
-    # ---- reads ------------------------------------------------------------
+    def notify_key(self, key: str) -> None:
+        """Virtual touch: wake every watcher of ``key`` without writing
+        (used by e.g. scheduler shutdown to unblock queue waiters)."""
+        sh = self._shard(key)
+        with sh.lock:
+            sh.touch((key,))
+
+    # ---- atomic single-key ops ------------------------------------------
+    def set(self, key: str, value: Any, *, worker: str = "-") -> None:
+        sh = self._shard(key)
+        with sh.lock:
+            sh.data[key] = value
+            self._charge(sh, worker, "set", key, _sizeof(value), write=True)
+            sh.touch((key,))
+
+    def get(self, key: str, default: Any = None, *, worker: str = "-") -> Any:
+        sh = self._shard(key)
+        with sh.lock:
+            value = sh.data.get(key, default)
+            self._charge(sh, worker, "get", key, _sizeof(value), write=False)
+            return value
+
     def mget(
         self, keys: List[str], default: Any = None, *, worker: str = "-"
     ) -> List[Any]:
@@ -247,6 +272,68 @@ class KVStore(_Endpoint):
                 )
         return out
 
+    def mset(self, mapping: Dict[str, Any], *, worker: str = "-") -> None:
+        """Batched set (Redis MSET): the write-side mirror of :meth:`mget`.
+        Keys are grouped by shard; each shard's group lands in one locked
+        pass charged as one amortized round-trip (request latency + summed
+        transfer), and the shard sequence is bumped exactly once — watchers
+        wake once per touched shard, not once per key."""
+        by_shard: Dict[int, List[str]] = {}
+        for key in mapping:
+            by_shard.setdefault(self.shard_of(key), []).append(key)
+        for sidx, group in by_shard.items():
+            sh = self._shards[sidx]
+            with sh.lock:
+                nbytes = 0
+                for key in group:
+                    value = mapping[key]
+                    sh.data[key] = value
+                    nbytes += _sizeof(value)
+                self._charge(
+                    sh, worker, "mset", f"[{len(group)} keys@s{sidx}]",
+                    nbytes, write=True,
+                )
+                sh.touch(group)  # one wakeup per touched shard for the whole batch
+
+    def setnx(self, key: str, value: Any, *, worker: str = "-") -> bool:
+        sh = self._shard(key)
+        with sh.lock:
+            self._charge(sh, worker, "setnx", key, _sizeof(value), write=True)
+            if key in sh.data:
+                return False
+            sh.data[key] = value
+            sh.touch((key,))
+            return True
+
+    def incr(self, key: str, amount: float = 1, *, worker: str = "-") -> float:
+        sh = self._shard(key)
+        with sh.lock:
+            new = sh.data.get(key, 0) + amount
+            sh.data[key] = new
+            self._charge(sh, worker, "incr", key, 8, write=True)
+            sh.touch((key,))
+            return new
+
+    def mdel(self, keys: List[str], *, worker: str = "-") -> int:
+        """Batched delete: one amortized round-trip per shard touched (cf.
+        :meth:`mget`).  Returns how many of the keys actually existed —
+        job GC uses the count to settle advisory lease accounting."""
+        by_shard: Dict[int, List[str]] = {}
+        for key in keys:
+            by_shard.setdefault(self.shard_of(key), []).append(key)
+        removed = 0
+        for sidx, group in by_shard.items():
+            sh = self._shards[sidx]
+            with sh.lock:
+                for key in group:
+                    if sh.data.pop(key, _TOMBSTONE) is not _TOMBSTONE:
+                        removed += 1
+                self._charge(
+                    sh, worker, "mdel", f"[{len(group)} keys@s{sidx}]", 0, write=True
+                )
+                sh.touch(group)
+        return removed
+
     def scan(self, prefix: str, *, worker: str = "-") -> List[str]:
         """All keys starting with ``prefix`` (Redis SCAN MATCH): one charged
         round-trip per shard — every shard must be visited, since hashing
@@ -265,6 +352,34 @@ class KVStore(_Endpoint):
         return sorted(out)
 
     # ---- server-side scripting (Redis EVAL analogue) ---------------------
+    def eval(
+        self,
+        key: str,
+        fn: Callable[[Any], Any],
+        *,
+        default: Any = None,
+        worker: str = "-",
+    ) -> Any:
+        """Atomically ``data[key] = fn(data.get(key, default))`` under the
+        shard lock; returns the new value.  This is the paper's 'existing
+        support for server-side scripting … to implement features like range
+        updates' — the parameter server's in-place gradient apply, and (with
+        the :data:`DELETE` sentinel return) the scheduler's fenced
+        compare-epoch-then-delete lease release."""
+        sh = self._shard(key)
+        with sh.lock:
+            cur = sh.data.get(key, default)
+            new = fn(cur)
+            if new is DELETE:
+                sh.data.pop(key, None)
+                self._charge(sh, worker, "eval", key, 0, write=True)
+                sh.touch((key,))
+                return None
+            sh.data[key] = new
+            self._charge(sh, worker, "eval", key, _sizeof(new), write=True)
+            sh.touch((key,))
+            return new
+
     def eval_many(
         self,
         updates: Dict[str, Callable[[Any], Any]],
@@ -400,3 +515,4 @@ class KVStore(_Endpoint):
         with sh.lock:
             self._charge(sh, worker, "llen", key, 8, write=False)
             return len(sh.data.get(key, []))
+

@@ -1,6 +1,9 @@
 """S3-semantics object store, in memory (port of the in-memory parts of
 `repro.storage.object_store`, copied so that the port imports nothing of
 the JAX package; the file and net backends come with a later slice).
+It carries every verb the runtime (`repro_torch.core`) and the trainer's
+checkpoints call: deletes (``delete_many``, ``delete_prefix``),
+``put_content_addressed``, ``publish_result`` and ``watch_tick_s``.
 
 Semantics reproduced from the paper's use of S3:
   * whole-object atomic ``put`` / ``get`` (no partial writes ever visible);
@@ -85,11 +88,23 @@ class Ledger:
             return list(self._records)
 
 
+# Fallback re-check interval for key watchers on a cross-process backend
+# without a watch thread (none in the port: its one backend is in memory).
+WATCH_FALLBACK_TICK_S = 0.25
+
+
 class InMemoryBackend:
     """Process-local object map with a put-event watch (condition + a ring
     of (seq, keys) so waiters retire exactly the keys that landed)."""
 
     _RECENT_PUTS = 512
+    # the backend flags the runtime reads: an in-memory map is reached
+    # only through in-process handles, stores references (so puts copy),
+    # and does not echo this handle's own puts
+    cross_process = False
+    self_watching = False
+    echoes_puts = False
+    zero_copy_puts = False
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -155,9 +170,17 @@ class InMemoryBackend:
         with self._lock:
             return {k: self._data[k] for k in keys if k in self._data}
 
+    def exists(self, key: str) -> bool:
+        with self._lock:
+            return key in self._data
+
     def exists_many(self, keys: List[str]) -> set:
         with self._lock:
             return {k for k in keys if k in self._data}
+
+    def delete(self, key: str) -> None:
+        with self._lock:
+            self._data.pop(key, None)
 
     def list(self, prefix: str) -> List[str]:
         with self._lock:
@@ -176,10 +199,26 @@ class ObjectStore(_Endpoint):
         self.backend = backend or InMemoryBackend()
         self.profile = profile
         self.ledger = ledger or Ledger()
+        # tick-bounded (non-event-driven) waits on this handle; stays 0
+        # unless a caller passes ``poll_s``
+        self.fallback_tick_waits = 0
         self._register_endpoint()
 
     def _charge(self, worker: str, op: str, key: str, nbytes: int, vt: float) -> None:
         self.ledger.record(OpRecord(worker, op, key, nbytes, vt, time.monotonic()))
+
+    # ---- key watch (delegates to the backend) ------------------------------
+    def notify_put(self, key: Optional[str] = None) -> None:
+        self.backend.notify_put([key] if key is not None else None)
+
+    def put_seq(self) -> int:
+        return self.backend.put_seq()
+
+    def puts_since(self, last_seq: int):
+        return self.backend.puts_since(last_seq)
+
+    def wait_put(self, last_seq: int, timeout_s: float) -> int:
+        return self.backend.wait_put(last_seq, timeout_s)
 
     # ---- raw byte plane --------------------------------------------------
     def put_bytes(self, key: str, blob: bytes, *, worker: str = "-", if_absent: bool = False) -> bool:
@@ -220,6 +259,23 @@ class ObjectStore(_Endpoint):
         self._charge(worker, "mhead", f"[{len(keys)} keys]", 0, self.profile.read_latency_s)
         return self.backend.exists_many(list(keys))
 
+    def delete(self, key: str, *, worker: str = "-") -> None:
+        self.backend.delete(key)
+        self._charge(worker, "delete", key, 0, self.profile.write_latency_s)
+
+    def delete_many(self, keys: List[str], *, worker: str = "-") -> None:
+        """One amortized round-trip for the whole batch."""
+        for k in keys:
+            self.backend.delete(k)
+        self._charge(worker, "mdel", f"[{len(keys)} keys]", 0, self.profile.write_latency_s)
+
+    def delete_prefix(self, prefix: str, *, worker: str = "-") -> int:
+        """Delete every key under ``prefix`` (job GC); returns the count."""
+        keys = self.list(prefix, worker=worker)
+        if keys:
+            self.delete_many(keys, worker=worker)
+        return len(keys)
+
     def list(self, prefix: str, *, worker: str = "-") -> List[str]:
         self._charge(worker, "list", prefix, 0, self.profile.read_latency_s)
         return self.backend.list(prefix)
@@ -245,20 +301,54 @@ class ObjectStore(_Endpoint):
             worker=worker, if_absent=if_absent,
         )
 
+    def put_content_addressed(self, prefix: str, value: Any, *, worker: str = "-") -> str:
+        """PyWren's 'globally unique keys': the key is the blob's content
+        hash, so duplicate puts of identical content are idempotent."""
+        key, blob = serialization.dumps_with_key(prefix, value)
+        self.put_bytes(key, blob, worker=worker, if_absent=True)
+        return key
+
     # ---- completion signalling -------------------------------------------
-    def wait_keys(self, keys: List[str], *, timeout_s: float = 60.0) -> None:
+    def publish_result(self, key: str, value: Any, *, worker: str = "-") -> bool:
+        """Atomic publish: first writer wins; existence of ``key`` is the
+        task's completion."""
+        return self.put(key, value, worker=worker, if_absent=True)
+
+    def watch_tick_s(self, poll_s: Optional[float] = None) -> Optional[float]:
+        """Fallback re-check interval for key watchers: None (purely
+        event-driven) unless ``poll_s`` is given or the backend is
+        cross-process without a watcher."""
+        if poll_s is not None:
+            return poll_s
+        if self.backend.cross_process and not self.backend.self_watching:
+            return WATCH_FALLBACK_TICK_S
+        return None
+
+    def wait_keys(
+        self, keys: List[str], *, poll_s: Optional[float] = None, timeout_s: float = 60.0
+    ) -> None:
         """Block until all keys exist; woken by each put event, which names
-        the keys it landed (no polling)."""
+        the keys it landed.  ``poll_s`` forces a re-check tick (counted in
+        ``fallback_tick_waits``)."""
         deadline = time.monotonic() + timeout_s
-        seq = self.backend.put_seq()
-        pending = [k for k in keys if k not in self.backend.exists_many(list(keys))]
-        while pending:
+        tick = self.watch_tick_s(poll_s)
+        pending = list(keys)
+        seq: Optional[int] = None
+        while True:
+            if seq is None or tick is not None:
+                seq = self.put_seq()
+                present = self.backend.exists_many(pending)
+            else:
+                seq, landed = self.puts_since(seq)
+                present = self.backend.exists_many(pending) if landed is None else landed
+            pending = [k for k in pending if k not in present]
+            if not pending:
+                return
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 raise TimeoutError(f"{len(pending)} keys still absent, e.g. {pending[:3]}")
-            self.backend.wait_put(seq, remaining)
-            seq, landed = self.backend.puts_since(seq)
-            if landed is None:
-                landed = self.backend.exists_many(pending)
-            pending = [k for k in pending if k not in landed]
-
+            if tick is None:
+                self.wait_put(seq, remaining)
+            else:
+                self.fallback_tick_waits += 1
+                self.wait_put(seq, min(tick, remaining))

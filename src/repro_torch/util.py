@@ -3,26 +3,31 @@ stand-in for `jax.tree_util` on parameter and cache trees)."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
-def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
-    """(leaves in a fixed order, structure); dict keys are taken sorted."""
+def tree_flatten(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> Tuple[List[Any], Any]:
+    """(leaves in a fixed order, structure); dict keys are taken sorted.
+    ``is_leaf(node)`` true stops the descent at ``node`` (as in JAX).  The
+    structure is plain Python (tuples of strings, lists and None); a named
+    tuple is recorded as a tuple."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree], None
     if isinstance(tree, dict):
         keys = sorted(tree)
         leaves, subs = [], []
         for k in keys:
-            ls, s = tree_flatten(tree[k])
+            ls, s = tree_flatten(tree[k], is_leaf)
             leaves += ls
             subs.append(s)
         return leaves, ("dict", keys, subs)
     if isinstance(tree, (list, tuple)):
         leaves, subs = [], []
         for x in tree:
-            ls, s = tree_flatten(x)
+            ls, s = tree_flatten(x, is_leaf)
             leaves += ls
             subs.append(s)
-        return leaves, (type(tree).__name__, None, subs)
+        return leaves, ("tuple" if isinstance(tree, tuple) else "list", None, subs)
     return [tree], None
 
 

@@ -21,6 +21,14 @@ The MoE and MLA layers in fp32 (reduced configs, TF32 off): 1e-5 (the
 layer bar of `tests/test_torch_moe.py`), with the same experts picked.
 Decode attention is one kernel for every dtype mix (fp32 math), one
 launch per call with a cluster of CTAs per (row, kv head).
+
+Training (fp32 and bf16): attention under autograd runs the flash kernel
+forward inside ``FlashAttentionFn``, whose backward is the plain version's
+derivative, so the gradients are held to autograd of the plain version at
+1e-6 relative (the same computation; fp32 inside); the other three
+wrappers raise under autograd; one reduced llama3-8b train step on the card
+against the CPU (fp32, TF32 off): loss and metrics 1e-5, parameters 1e-5
+but for at most 1e-4 of the elements, all within lr.
 """
 
 import dataclasses
@@ -39,7 +47,9 @@ from repro_torch.configs import CONFIGS  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.util import tree_map  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import train_step as tts  # noqa: E402
+from repro_torch.util import tree_flatten, tree_map  # noqa: E402
 
 BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 
@@ -555,3 +565,95 @@ def test_whisper_and_vlm_prefix_cuda_match_cpu(cuda, monkeypatch, arch, changes)
     assert torch.equal(tk_g, tk_c)
     torch.testing.assert_close(lg_g, lg_c, **MODEL_TOL)
     torch.testing.assert_close(fw_g, fw_c, **MODEL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel under autograd, the forward-only guards, a step
+# ---------------------------------------------------------------------------
+
+GRAD_CASES = [
+    # B, S, H, K, D, causal, window, cap
+    (2, 128, 8, 2, 128, True, None, None),   # GQA 4
+    (1, 77, 14, 2, 64, True, None, None),    # GQA 7, ragged S
+    (2, 150, 8, 8, 64, True, 64, None),      # window, ragged
+    (1, 100, 4, 1, 128, True, None, 50.0),   # softcap, GQA 4
+    (1, 96, 4, 4, 64, False, None, None),    # full
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_through_the_kernel(cuda, case, dtype):
+    B, S, H, K, D, causal, window, cap = case
+    rng = np.random.default_rng(sum(case[:5]))
+    base = [_t(rng, s, cuda, dtype) for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+    go = _t(rng, (B, S, H, D), cuda, dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    ins = [t.clone().requires_grad_(True) for t in base]
+    before = fmod.flash_attention.launches
+    out = ops.flash_attention(*ins, **kw)
+    assert fmod.flash_attention.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, go)
+    ref = [t.clone().requires_grad_(True) for t in base]
+    exp_out = fmod.flash_attention_plain(*ref, **kw)
+    exp = torch.autograd.grad(exp_out, ref, go)
+    assert_matches_plain(out.detach(), exp_out.detach())
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and a.abs().max() > 0
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-6)
+    with torch.no_grad():  # serving calls go to the wrapper as they are
+        assert ops.flash_attention(*ins, **kw).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_raise_under_autograd(cuda):
+    rng = np.random.default_rng(6)
+    q = _t(rng, (2, 8, 64), cuda, torch.float32).requires_grad_(True)
+    kc, vc = (_t(rng, (2, 64, 2, 64), cuda, torch.float32) for _ in range(2))
+    lens = torch.tensor([10, 64], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dmod.decode_attention(q, kc, vc, lens)
+    with torch.no_grad():
+        dmod.decode_attention(q, kc, vc, lens)
+    x = _t(rng, (1, 32, 4, 64), cuda, torch.float32).requires_grad_(True)
+    dt = torch.nn.functional.softplus(_t(rng, (1, 32, 4), cuda, torch.float32))
+    A = -torch.exp(_t(rng, (4,), cuda, torch.float32))
+    Bm, Cm = (_t(rng, (1, 32, 1, 64), cuda, torch.float32) for _ in range(2))
+    with pytest.raises(RuntimeError, match="ssd"):
+        smod.ssd(x, dt, A, Bm, Cm)
+    with torch.no_grad():
+        smod.ssd(x, dt, A, Bm, Cm)
+    mq, mk, mv, ig, fg = _mlstm_inputs(rng, 1, 16, 2, 64, cuda, torch.float32, False)
+    with pytest.raises(RuntimeError, match="mlstm"):
+        mmod.mlstm(mq.requires_grad_(True), mk, mv, ig, fg)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        fmod.flash_attention(x, x.detach(), x.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_reduced_train_step_cuda_matches_cpu(cuda, monkeypatch, fused):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = CONFIGS["llama3-8b"].reduced()
+    opt = topt.adamw(1e-3)
+    step = tts.make_train_step(cfg, opt, remat=True, fused_ce=fused)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 33)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = fmod.flash_attention.launches
+    s_gpu, m_gpu = step(tts.TrainState(tree_map(lambda t: t.to(cuda), p_cpu),
+                                       opt.init(tree_map(lambda t: t.to(cuda), p_cpu))),
+                        {k: v.to(cuda) for k, v in batch.items()})
+    assert fmod.flash_attention.launches - before == 2 * cfg.n_layers  # forward + recompute
+    s_cpu, m_cpu = step(tts.TrainState(p_cpu, opt.init(p_cpu)), batch)
+    for k in m_cpu:
+        assert float(m_gpu[k]) == pytest.approx(float(m_cpu[k]), rel=1e-5, abs=1e-5), k
+    # Adam moves an element whose gradient is near eps by up to lr in a
+    # direction its noise sets (measured: 2 of 32768 elements of one leaf,
+    # 1.2e-4 = 0.12 lr); all others within 1e-5
+    diffs = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in
+                       zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0])])
+    assert int((diffs > 1e-5).sum()) <= 1e-4 * diffs.numel()
+    assert float(diffs.max()) <= 1e-3

@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: nothing under src/repro_torch/ nor
-chip_smoke.py imports jax or the JAX package (`repro`), not even inside a
-function body, and importing the port's entry points loads neither."""
+chip_smoke.py imports jax, the JAX package (`repro`) or cloudpickle (the
+card's machine has none; the port's runtime ships callables with the
+standard pickle), not even inside a function body, and importing the
+port's entry points, its runtime, data pipeline and trainer loads none of
+them."""
 
 import ast
 import os
@@ -13,12 +16,13 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro", "cloudpickle")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in FORBIDDEN
 
 
 def _imports(path: Path):
@@ -43,7 +47,8 @@ def test_port_entry_points_load_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.serve, repro_torch.launch.serve, repro_torch.kernels.ops\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "import repro_torch.launch.train, repro_torch.train, repro_torch.core, repro_torch.data\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
