@@ -21,7 +21,11 @@ script exits non-zero:
    PyTorch library call's where one computes the same function
    (``F.scaled_dot_product_attention``, a yardstick the port never calls;
    none for the SSD scan and the mLSTM), at the serving shapes of phases
-   3, 3b, 3c, 3d, 3f and 3g first;
+   3, 3b, 3c, 3d, 3f and 3g first; at the train steps' shapes of phases 5d
+   and 5e (flash MHA 32 x 64 and the SSD at 2 x 1024, the mLSTM at 4 x 512
+   and at 2 x 1024, bf16) also the gradients through ``PlainBackwardFn``
+   (``ops`` under autograd), which must equal autograd of the plain version
+   bit for bit, and the plain backward's device time;
 3. serve: llama3-8b at full width (32 layers, random weights from a seed)
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
@@ -97,11 +101,33 @@ script exits non-zero:
    --reduced --steps 4 --steps-per-chunk 2`` on the card;
 5c. train consistency: llama3-8b width at 2 layers in fp32 (TF32 off), one
    batch of 128 tokens, the loss and gradients on the card against the CPU,
-   then the int8 optimizer given the same gradients on both devices.
+   then the int8 optimizer given the same gradients on both devices;
+5d. train: zamba2-1.2b at full width and depth (38 Mamba2 layers, the
+   shared block every 6; 1.227 B parameters) as in 5a: the SSD and flash
+   kernels inside ``PlainBackwardFn`` (the plain version's derivative in the
+   backward), exactly 76 SSD
+   and 12 flash launches per step (all on the tensor-core route), every
+   leaf's gradient nonzero (in_proj, A_log, dt_bias and D of every Mamba
+   layer, the shared block's wq/wk/wv among them), peak memory under 14
+   GB; the device ms of the plain SSD and attention backwards;
+5e. train: xlstm-1.3b at full width and depth (42 mLSTM + 6 sLSTM blocks;
+   2.024 B) the same way: the mLSTM kernels inside ``PlainBackwardFn``, exactly 84
+   launches per step (all on the tensor-core route), every leaf nonzero
+   (w_qhw/w_khw/w_vhw/w_igate/w_fgate of every mLSTM block and r_kernel of
+   every sLSTM block among them), peak memory under 19 GB, its sequence
+   cut to 4 x 512 tokens (``TRAIN_SHAPE``: the sLSTM loop's time); the
+   device ms of the plain mLSTM backward and the sLSTM blocks' share of
+   each step on the host clock; then ``python -m repro_torch.launch.train
+   --arch xlstm-1.3b --reduced`` on the card;
+5f. train consistency as in 5c for zamba2 width at 7 layers (one super
+   block of 6 Mamba layers with the shared block, one tail layer) and
+   xlstm width at 8 (7 mLSTM + 1 sLSTM), the fp32 kernels launched as the
+   layers imply.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving and training phase, error and
-times at the serving shapes, and flash's at the train step's); the last line is the result object.  Without a GPU, or
+times at the serving shapes, and at the train steps' shapes with the plain
+backward's time); the last line is the result object.  Without a GPU, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -199,6 +225,28 @@ def bound(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def grad_check(torch, flush, run, base, go):
+    """The training path of a kernel at one shape: ``run(leaves, True)``
+    calls the dispatch (``ops``) under autograd, which launches the kernel
+    inside its autograd Function, ``run(leaves, False)`` the plain version.
+    The Function's backward is that plain version recomputed, so the
+    gradients of every input must be finite and equal autograd of the
+    plain version's on the same inputs bit for bit.  Also the device time
+    of the Function's backward (the plain recompute and its derivative)."""
+    ins = [t.clone().requires_grad_(True) for t in base]
+    out = run(ins, True)
+    got = torch.autograd.grad(out, ins, go, retain_graph=True)
+    ref = [t.clone().requires_grad_(True) for t in base]
+    exp = torch.autograd.grad(run(ref, False), ref, go)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, exp))
+    equal = all(torch.equal(a, b) and bool(torch.isfinite(a).all()) for a, b in zip(got, exp))
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(out, ins, go, retain_graph=True), 3,
+                     flush)
+    return {"grad_fn": type(out.grad_fn).__name__,
+            "grads_equal_plain": equal, "grad_max_abs_diff": diff,
+            "backward_plain_ms": bwd_ms}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -250,10 +298,11 @@ def decode_case(torch, F, dmod, flush, dev, name, B, S, K, G, D, clen, q_dt, kv_
 
 
 def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
-               causal=True, window=None, cap=None, q_offset=0, yardstick=None):
+               causal=True, window=None, cap=None, q_offset=0, yardstick=None, ops=None):
     """With ``yardstick`` (the decode attention module; Sq = 1, non-causal)
     the row also times the decode kernel on the same q, K and V with every
-    length Sk: the same function, as a yardstick only."""
+    length Sk: the same function, as a yardstick only.  With ``ops`` (the
+    dispatch module: a training shape) also `grad_check`."""
     g = torch.Generator(device=dev).manual_seed(B * Sq + Sk + G)
     H = K * G
     q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(getattr(torch, dt))
@@ -296,15 +345,24 @@ def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
         lens = torch.full((B,), Sk, dtype=torch.int32, device=dev)
         row["decode_yardstick_ms"] = time_ms(
             torch, lambda: yardstick.decode_attention(q[:, 0], k, v, lens), 10, flush)
+    if ops is not None:
+        go = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        row.update(grad_check(torch, flush, lambda t, fn: (
+            ops.flash_attention if fn else fmod.flash_attention_plain)(*t, **kw), [q, k, v], go))
     emit(row)
     check(ok, f"flash_attention {name}: error {ratio:.3g}x its limit (max_abs_err {err})")
+    check(ops is None or row["grads_equal_plain"],
+          f"flash_attention {name}: gradients differ from the plain version's by "
+          f"{row.get('grad_max_abs_diff')}")
     return row
 
 
 def ssd_case(torch, F, smod, flush, dev, name, B, S, H, G, dt, with_d=True,
-             return_state=True, chunk=128):
+             return_state=True, chunk=128, ops=None):
     """x, B and C are views of one (B, S, conv_dim) buffer, as the Mamba2
-    layer hands them over (the conv output, row stride conv_dim)."""
+    layer hands them over (the conv output, row stride conv_dim).  With
+    ``ops`` (the dispatch module: a training shape, no state) also
+    `grad_check` over the buffer, dt, A and D."""
     g = torch.Generator(device=dev).manual_seed(B * S + H + G)
     P = N = 64
     d_in, gn = H * P, G * N
@@ -353,20 +411,33 @@ def ssd_case(torch, F, smod, flush, dev, name, B, S, H, G, dt, with_d=True,
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call computes the SSD scan
     }
+    if ops is not None:
+        def run(t, fn):
+            views = (t[0][..., :d_in].reshape(B, S, H, P), t[1], t[2],
+                     t[0][..., d_in:d_in + gn].reshape(B, S, G, N),
+                     t[0][..., d_in + gn:].reshape(B, S, G, N), t[3] if with_d else None)
+            return (ops.ssd_scan if fn else smod.ssd_plain)(*views, chunk=chunk)
+
+        go = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+        row.update(grad_check(torch, flush, run, [xbc, dtv, A] + ([D] if with_d else []), go))
     emit(row)
     check(ok, f"ssd {name}: y error {ratio:.3g}x its limit (max_abs_err {err}), "
               f"state error {state_ratio}x its limit")
+    check(ops is None or row["grads_equal_plain"],
+          f"ssd {name}: gradients differ from the plain version's by "
+          f"{row.get('grad_max_abs_diff')}")
     return row
 
 
-def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates, chunks=1):
+def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates, chunks=1, ops=None):
     """q, k, v in ``dt``, fp32 gates: with ``model_gates`` in the ranges of
     xlstm's gate biases (i near -10, f biases 3-6), else the JAX test's
     (i ~ N(0,1), f ~ N(2,1)).  ``kernel_ms`` times the wrapper's device
     work: the kernels and the F cumsum it computes first.  With ``chunks``
     > 1 (bf16 only) the scratch cap is lowered for this case until the
     wrapper runs at least that many query-row chunks, and the output must
-    equal the one-chunk run's bit for bit."""
+    equal the one-chunk run's bit for bit.  With ``ops`` (the dispatch
+    module: a training shape) also `grad_check`."""
     g = torch.Generator(device=dev).manual_seed(B * S + H + D)
     q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(getattr(torch, dt))
                for _ in range(3))
@@ -413,16 +484,24 @@ def mlstm_case(torch, mmod, flush, dev, name, B, S, H, D, dt, model_gates, chunk
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call computes the mLSTM cell
     }
+    if ops is not None:
+        go = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        row.update(grad_check(torch, flush, lambda t, fn: (
+            ops.mlstm_parallel if fn else mmod.mlstm_plain)(*t), [q, k, v, ig, fg], go))
     emit(row)
     check(ok, f"mlstm {name}: error {ratio:.3g}x its limit (max_abs_err {err})")
+    check(ops is None or row["grads_equal_plain"],
+          f"mlstm {name}: gradients differ from the plain version's by "
+          f"{row.get('grad_max_abs_diff')}")
     return row
 
 
-def phase_mlstm(torch, mmod, dev):
+def phase_mlstm(torch, mmod, ops, dev):
     """The mLSTM cases: xlstm-1.3b's serving shapes (H=4, D=1024, bf16)
     first, then a long stateless forward, the JAX test's gates at a head
     dim that is not a multiple of 128, runs split into query-row chunks by
-    a lowered scratch cap, and ragged fp32 cases."""
+    a lowered scratch cap, ragged fp32 cases, and with the gradient check
+    the train step's shape (``TRAIN_SHAPE``, phase 5e) and 2 x 1024."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for case in (
@@ -438,11 +517,18 @@ def phase_mlstm(torch, mmod, dev):
         ("serve-300-f32", 1, 300, 4, 1024, "float32", True),
     ):
         rows.append(mlstm_case(torch, mmod, flush, dev, *case))
+    # the train step's shape (phase 5e) and 2 rows x 1024, xlstm-1.3b
+    # heads, through ops.mlstm_parallel under autograd
+    B, S = TRAIN_SHAPE["xlstm-1.3b"]
+    rows.append(mlstm_case(torch, mmod, flush, dev, MLSTM_TRAIN_CASE, B, S, 4, 1024,
+                           "bfloat16", True, ops=ops))
+    rows.append(mlstm_case(torch, mmod, flush, dev, "grad-2x1024", 2, 1024, 4, 1024,
+                           "bfloat16", True, ops=ops))
     del flush
     return rows
 
 
-def phase_kernels(torch, dmod, fmod, smod, dev):
+def phase_kernels(torch, dmod, fmod, smod, ops, dev):
     import torch.nn.functional as F
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -471,6 +557,10 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     d("zamba2-serve", 4, 1024, 32, 1, 64, [332, 48, 305, 17], "bfloat16", "float32")
     f("zamba2-serve-300", 1, 300, 300, 32, 1, 64, "bfloat16")
     f("zamba2-serve-16", 1, 16, 16, 32, 1, 64, "bfloat16")
+    # the train step's shapes (phase 5d): the shared block's MHA and every
+    # Mamba layer's scan at 2 rows x 1024 (8 chunks: one cluster launch),
+    # through ops under autograd
+    f("zamba2-train-2x1024", 2, 1024, 1024, 32, 1, 64, "bfloat16", ops=ops)
     # the serving shapes of phase 3d: olmoe-1b-7b is MHA (group 1) at
     # head_dim 128; prefill groups right-padded to a multiple of 16 (304),
     # and one ragged length
@@ -505,6 +595,7 @@ def phase_kernels(torch, dmod, fmod, smod, dev):
     m("s128-f32-noD", 1, 128, 64, 2, "float32", with_d=False)
     m("g1-300-bf16", 1, 300, 64, 1, "bfloat16")
     m("chunk64-300-bf16", 2, 300, 64, 2, "bfloat16", chunk=64)
+    m("train-2x1024", 2, 1024, 64, 2, "bfloat16", return_state=False, ops=ops)
     for G in (4, 8):
         d(f"g{G}-bf16", 8, S, 8, G, 128, clen8, "bfloat16", "bfloat16")
         d(f"g{G}-bf16q-f32cache", 8, S, 8, G, 128, clen8, "bfloat16", "float32")
@@ -1004,40 +1095,135 @@ def phase_consistency(torch, port, dev, arch, n_layers, lens, with_forward=False
 # phase 5: training
 # ---------------------------------------------------------------------------
 
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3  # phase 5a
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3  # phases 5a, 5d, 5e
+# phase 5e's rows x sequence: the sLSTM loop's host time grows with the
+# sequence (about 25 s a step at 2 x 1024), not with the rows, so the
+# sequence is cut to fit the script's time limit and the rows keep the
+# 2048 tokens of a step
+TRAIN_SHAPE = {"xlstm-1.3b": (4, 512)}
+MLSTM_TRAIN_CASE = "train-%dx%d" % TRAIN_SHAPE["xlstm-1.3b"]  # phase 2's row at 5e's shape
 ELASTIC_LAYERS, ELASTIC_SEQ = 4, 512  # phase 5b: llama3-8b width, 1.92 B parameters
-MEM_LIMIT_GB = 75.0  # phase 5a: about 48 GB persistent + one leaf's temporaries
-BWD_RANGE = "attention_backward_plain"  # phase 5a's profiler range over FlashAttentionFn.backward
+# peak memory of the train phases.  5d and 5e: the parameters and int8
+# moments measured on an H100 plus twice the rest of the measured peak
+# (gradients, activations, the plain backwards' fp32 temporaries):
+# zamba2 4.94 + 2 x 4.56 GB, xlstm 8.42 + 2 x 5.23 GB
+MEM_LIMIT_GB = {
+    "llama3-8b": 75.0,  # 5a: about 48 GB persistent + one leaf's temporaries
+    "zamba2-1.2b": 14.0,
+    "xlstm-1.3b": 19.0,
+}
+# per kernel of a train step: (short name, profiler range over its
+# Function's backward, the plain recompute; device kernel names)
+TRAIN_KERNELS = {
+    "flash_attention": ("flash", "attention_backward_plain", r"flash"),
+    "ssd": ("ssd", "ssd_backward_plain", r"ssd_"),
+    "mlstm": ("mlstm", "mlstm_backward_plain",
+              r"\b(mlstm_kernel|stabilizer_kernel|w_kernel|wv_kernel)\b"),
+}
+# leaves that must get a nonzero gradient, by name, in every layer that has them
+TRAIN_LEAVES = {
+    "llama3-8b": ("wq", "wk", "wv"),
+    "zamba2-1.2b": ("in_proj", "A_log", "dt_bias", "D", "wq", "wk", "wv"),
+    "xlstm-1.3b": ("w_qhw", "w_khw", "w_vhw", "w_igate", "w_fgate", "r_kernel"),
+}
 
 
-def attention_backward_timer(torch, fmod):
-    """Wrap ``FlashAttentionFn.backward`` (the plain recompute) in a
-    profiler range; -> undo."""
+def train_launches(cfg):
+    """Kernel launches of one train step with remat, from the
+    configuration's fields: two per layer that runs a kernel (the forward,
+    then the recompute in the backward).  The hybrid's layers are all Mamba
+    layers, the shared block after every ``shared_attn_every`` of them; one
+    xLSTM block in ``slstm_every`` is an sLSTM block."""
+    if cfg.family == "hybrid":
+        return {"ssd": 2 * cfg.n_layers,
+                "flash_attention": 2 * (cfg.n_layers // cfg.shared_attn_every)}
+    if cfg.family == "ssm":
+        return {"mlstm": 2 * (cfg.n_layers - cfg.n_layers // cfg.xlstm.slstm_every)}
+    return {"flash_attention": 2 * cfg.n_layers}
+
+
+# the launches per step of the full-depth models (phases 5a, 5d, 5e), as
+# numbers: 32 attention layers; 38 Mamba layers and 6 shared-block calls;
+# 42 mLSTM blocks
+TRAIN_LAUNCHES = {
+    "llama3-8b": {"flash_attention": 64},
+    "zamba2-1.2b": {"ssd": 76, "flash_attention": 12},
+    "xlstm-1.3b": {"mlstm": 84},
+}
+
+
+def backward_timer(torch, fn_cls, names):
+    """Wrap ``fn_cls.backward`` (the plain recompute) in a profiler range,
+    named by ``names[ctx.plain]`` after the plain version it recomputes;
+    -> undo."""
     from torch.profiler import record_function
 
-    orig = fmod.FlashAttentionFn.backward
+    orig = fn_cls.backward
 
-    def backward(ctx, grad_out):
-        with record_function(BWD_RANGE):
-            return orig(ctx, grad_out)
+    def backward(ctx, *grads):
+        with record_function(names[ctx.plain]):
+            return orig(ctx, *grads)
 
-    fmod.FlashAttentionFn.backward = staticmethod(backward)
-    return lambda: setattr(fmod.FlashAttentionFn, "backward", staticmethod(orig))
+    fn_cls.backward = staticmethod(backward)
+    return lambda: setattr(fn_cls, "backward", staticmethod(orig))
+
+
+def slstm_host_timer(torch, xl):
+    """Add up the host-clock time of the sLSTM blocks in a train step: each
+    block's forward call, and its backward from the gradient's arrival at
+    its output to its arrival at its input (the remat recompute runs
+    inside that span; the block's residual is inside it too, so the input's
+    gradient is complete only when the block's backward is).  -> (totals,
+    undo); ``totals`` is reset by the caller."""
+    orig = xl.slstm_block_apply
+    totals = {"forward_s": 0.0, "backward_s": 0.0}
+    open_at = []
+
+    def apply(p, h, cfg, **kw):
+        t0 = time.perf_counter()
+        out, state = orig(p, h, cfg, **kw)
+        if open_at or not (torch.is_grad_enabled() and h.requires_grad):
+            return out, state  # the recompute (inside a backward span), or no autograd
+        totals["forward_s"] += time.perf_counter() - t0
+
+        def arrived_at_output(_):
+            open_at.append(time.perf_counter())
+
+        def arrived_at_input(_):
+            totals["backward_s"] += time.perf_counter() - open_at.pop()
+
+        out.register_hook(arrived_at_output)
+        h.register_hook(arrived_at_input)
+        return out, state
+
+    xl.slstm_block_apply = apply
+    return totals, lambda: setattr(xl, "slstm_block_apply", orig)
 
 
 def phase_train_step(torch, np, port, dev, card, cfg):
-    """llama3-8b at full width and depth, bf16: int8 moments, remat, the
-    fused CE, one microbatch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens and
-    the in-place update, ``TRAIN_STEPS`` steps; the last one under
-    ``torch.profiler``.  Every loss and grad norm finite; every parameter
+    """``cfg`` at full width and depth, bf16: int8 moments, remat, the
+    fused CE, one microbatch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens
+    (``TRAIN_SHAPE`` where it names the model) and the in-place update,
+    ``TRAIN_STEPS`` steps; the last one under ``torch.profiler``.  Every loss and grad norm finite; every parameter
     leaf's gradient nonzero (read from the first moment after step 1,
-    which is (1 - b1) g: its int8 codes are all 0 only where g is);
-    exactly 2 x n_layers flash launches per step (forward and the remat
-    recompute), all on the tensor-core route; peak memory under
-    ``MEM_LIMIT_GB``."""
+    which is (1 - b1) g: its int8 codes are all 0 only where g is), the
+    leaves ``TRAIN_LEAVES`` names among them in every layer; exactly the
+    kernel launches per step ``train_launches`` gives (forward and the
+    remat recompute), all on the tensor-core route, and one plain backward
+    per layer; peak memory under the phase's ``MEM_LIMIT_GB``.  The
+    profiled step's device time of each kernel's forward and of each plain
+    backward (a profiler range each); for the xLSTM also the sLSTM blocks'
+    share of each step on the host clock."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
-    tr, fmod = port["train"], port["fmod"]
+    tr = port["train"]
+    batch_rows, seq = TRAIN_SHAPE.get(cfg.name, (TRAIN_BATCH, TRAIN_SEQ))
+    expect = train_launches(cfg)
+    check(expect == TRAIN_LAUNCHES[cfg.name],
+          f"{cfg.name}: launches per step {expect}, expected {TRAIN_LAUNCHES[cfg.name]}")
+    mem_limit = MEM_LIMIT_GB[cfg.name]
     L = cfg.n_layers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1049,16 +1235,23 @@ def phase_train_step(torch, np, port, dev, card, cfg):
     persistent = tree_bytes(port, state.params) + tree_bytes(port, (state.opt_state.m,
                                                                      state.opt_state.v))
     step_fn = tr.make_train_step(cfg, opt, remat=True, fused_ce=True, inplace=True)
-    dcfg = port["DataConfig"](seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                              vocab_size=cfg.vocab_size)
+    dcfg = port["DataConfig"](seq_len=seq, global_batch=batch_rows, vocab_size=cfg.vocab_size)
     wrappers = port["wrappers"]
+    ranges = [TRAIN_KERNELS[k][1] for k in expect]
     rows, nonzero = [], None
-    undo = attention_backward_timer(torch, fmod)
+    undos = [backward_timer(torch, port["PlainBackwardFn"],
+                            {port["plains"][k]: TRAIN_KERNELS[k][1] for k in expect})]
+    slstm = None
+    if cfg.family == "ssm":
+        slstm, undo = slstm_host_timer(torch, port["xlstm"])
+        undos.append(undo)
     try:
         for i in range(TRAIN_STEPS):
             batch = {k: v.to(dev) for k, v in port["synthetic_batch"](dcfg, i, cfg).items()}
             profiled = i == TRAIN_STEPS - 1
             reset_counters(wrappers)
+            if slstm is not None:
+                slstm.update(forward_s=0.0, backward_s=0.0)
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
                 if profiled else None
             torch.cuda.synchronize()
@@ -1072,11 +1265,14 @@ def phase_train_step(torch, np, port, dev, card, cfg):
                 torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in wrappers.items()}
-            routes = dict(wrappers["flash_attention"].route_launches)
             row = {"step": i + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                    "tokens": int(m["tokens"]), "step_s": step_s, "profiled": profiled,
-                   "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "launches": launches,
-                   "flash_route_launches": routes}
+                   "tok_per_s": batch_rows * seq / step_s, "launches": launches}
+            for k in expect:
+                row[f"{TRAIN_KERNELS[k][0]}_route_launches"] = dict(wrappers[k].route_launches)
+            if slstm is not None:
+                row.update({f"slstm_{k}": v for k, v in slstm.items()})
+                row["slstm_share_of_step_host"] = sum(slstm.values()) / step_s
             if i == 0:  # m after step 1 is (1 - b1) g
                 leaves = port["tree_flatten"](state.opt_state.m, is_leaf=lambda x: (
                     isinstance(x, dict) and set(x) == {"q", "scale"}))[0]
@@ -1084,37 +1280,46 @@ def phase_train_step(torch, np, port, dev, card, cfg):
             if prof is not None:
                 from torch.autograd import DeviceType
 
-                ev, busy_ms, top = device_summary(prof, 1, annotations=(BWD_RANGE,))
-                flash_ms = sum(e.self_device_time_total for e in ev if "flash" in e.key) / 1e3
-                bwd = [e for e in prof.events()
-                       if e.name == BWD_RANGE and e.device_type == DeviceType.CPU]
+                t_post = time.perf_counter()
+                ev, busy_ms, top = device_summary(prof, 1, annotations=tuple(ranges))
                 unprofiled_ms = rows[-1]["step_s"] * 1e3
                 row.update({
                     "profiler_saw_device": bool(ev), "device_busy_ms": busy_ms,
                     "device_busy_share_profiled_step": min(1.0, busy_ms / (step_s * 1e3)),
                     "device_busy_share_of_step_before": min(1.0, busy_ms / unprofiled_ms),
-                    "flash_forward_device_ms": flash_ms,
-                    "attention_backward_plain_calls": len(bwd),
-                    "attention_backward_plain_device_ms":
-                        sum(e.device_time_total for e in bwd) / 1e3,
-                    "top_device_ms": top,
                 })
+                for k in expect:
+                    short, rng, pattern = TRAIN_KERNELS[k]
+                    bwd = [e for e in prof.events()
+                           if e.name == rng and e.device_type == DeviceType.CPU]
+                    fwd = [e for e in ev if re.search(pattern, e.key)]
+                    row.update({
+                        f"{short}_forward_device_ms":
+                            sum(e.self_device_time_total for e in fwd) / 1e3,
+                        f"{rng}_calls": len(bwd),
+                        f"{rng}_device_ms": sum(e.device_time_total for e in bwd) / 1e3,
+                    })
+                row["top_device_ms"] = top
+                row["profile_summary_s"] = time.perf_counter() - t_post
             rows.append(row)
             emit({"phase": "train_step", "arch": cfg.name, **row})
     finally:
-        undo()
+        for undo in undos:
+            undo()
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in port["tree_flatten"](state.params)[0])
-    qkv_nonzero = nonzero is not None and all(
-        nonzero[i] for i, path in enumerate(param_paths(port, state.params))
-        if path.rsplit(".", 1)[-1] in ("wq", "wk", "wv"))
+    names = [path.rsplit(".", 1)[-1] for path in param_paths(port, state.params)]
+    named = {name: [nonzero[i] for i, n in enumerate(names) if n == name]
+             for name in TRAIN_LEAVES[cfg.name]} if nonzero else {}
     emit({
         "phase": "train", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
-        "params": n_params, "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "params": n_params, "dtype": cfg.dtype, "batch": batch_rows, "seq": seq,
         "microbatches": 1, "quantize_moments": True, "remat": True, "fused_ce": True,
         "inplace_update": True, "init_s": init_s, "persistent_bytes": persistent,
-        "max_memory_allocated": peak, "mem_limit_gb": MEM_LIMIT_GB,
+        "max_memory_allocated": peak, "mem_limit_gb": mem_limit,
         "leaves": len(nonzero or []), "leaves_with_nonzero_grad": sum(nonzero or []),
+        "named_leaves_nonzero": {k: [sum(v), len(v)] for k, v in named.items()},
+        "launches_per_step": expect,
         "step_s": [r["step_s"] for r in rows],
         "losses": [r["loss"] for r in rows], "ln_vocab": float(np.log(cfg.vocab_size)),
         "card": card,
@@ -1122,24 +1327,28 @@ def phase_train_step(torch, np, port, dev, card, cfg):
     for r in rows:
         check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
               f"train step {r['step']}: loss {r['loss']}, grad norm {r['grad_norm']}")
-        check(r["launches"]["flash_attention"] == 2 * L,
-              f"train step {r['step']}: {r['launches']['flash_attention']} flash launches, "
-              f"expected 2 x {L}")
-        check(r["flash_route_launches"]["mma"] == 2 * L,
-              f"train step {r['step']}: flash routes {r['flash_route_launches']}")
-        for name in ("decode_attention", "ssd", "mlstm"):
-            check(r["launches"][name] == 0, f"train step: {name} launched")
+        for name in wrappers:
+            check(r["launches"][name] == expect.get(name, 0),
+                  f"train step {r['step']}: {r['launches'][name]} {name} launches, "
+                  f"expected {expect.get(name, 0)}")
+        for k, n in expect.items():
+            routes = r[f"{TRAIN_KERNELS[k][0]}_route_launches"]
+            check(routes["mma"] == n, f"train step {r['step']}: {k} routes {routes}")
     check(bool(nonzero) and all(nonzero), "a parameter leaf got a zero gradient")
-    check(qkv_nonzero, "wq/wk/wv of some layer got a zero gradient")
+    for name, flags in named.items():
+        check(bool(flags) and all(flags), f"{name}: {sum(flags)} of {len(flags)} leaves "
+                                          "got a nonzero gradient")
     check(abs(rows[0]["loss"] - np.log(cfg.vocab_size)) < 2.0,
           f"first loss {rows[0]['loss']} far from ln V")
-    check(rows[-1]["attention_backward_plain_calls"] == L,
-          f"{rows[-1]['attention_backward_plain_calls']} attention backward calls, expected {L}")
-    check(peak < MEM_LIMIT_GB * 1e9, f"peak memory {peak / 1e9:.1f} GB > {MEM_LIMIT_GB} GB")
-    launches = sum(r["launches"]["flash_attention"] for r in rows)
+    for k, n in expect.items():
+        rng = TRAIN_KERNELS[k][1]
+        check(rows[-1][f"{rng}_calls"] == n // 2,
+              f"{rows[-1][f'{rng}_calls']} {rng} calls, expected {n // 2}")
+    check(peak < mem_limit * 1e9, f"peak memory {peak / 1e9:.1f} GB > {mem_limit} GB")
+    launches = {name: sum(r["launches"][name] for r in rows) for name in wrappers}
     del state, m
     torch.cuda.empty_cache()
-    return {"flash_attention": launches, "decode_attention": 0, "ssd": 0, "mlstm": 0}
+    return launches
 
 
 def param_paths(port, params):
@@ -1236,9 +1445,10 @@ def phase_elastic(torch, np, port, dev, card, cfg):
     return launches
 
 
-def phase_launch_train(card):
-    """``python -m repro_torch.launch.train`` on the card, reduced."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3-8b",
+def phase_launch_train(card, arch):
+    """``python -m repro_torch.launch.train --arch <arch> --reduced`` on the
+    card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
            "--reduced", "--steps", "4", "--steps-per-chunk", "2"]
     env = dict(__import__("os").environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     t0 = time.perf_counter()
@@ -1246,26 +1456,31 @@ def phase_launch_train(card):
     lines = proc.stdout.strip().splitlines()
     emit({"phase": "launch_train", "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
           "wall_s": time.perf_counter() - t0, "stdout": lines[-3:], "card": card})
-    check(proc.returncode == 0, f"launch.train failed: {proc.stderr[-2000:]}")
+    check(proc.returncode == 0, f"launch.train --arch {arch} failed: {proc.stderr[-2000:]}")
     check(bool(lines) and lines[-1].endswith("checkpoint v2"), f"launch.train printed {lines}")
 
 
-def phase_train_consistency(torch, np, port, dev, card, n_layers=2, seq=128):
-    """llama3-8b width cut to ``n_layers`` layers in fp32 (TF32 off), the
+def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_layers=2, seq=128):
+    """``arch``'s width cut to ``n_layers`` layers in fp32 (TF32 off), the
     same parameters and one batch on the card and the CPU, remat and the
     fused CE: the loss within 1e-5 relative, each leaf's gradient within
-    1e-3 of its largest |g|; then the int8 optimizer given the CPU's
+    1e-3 of its largest |g|, the kernels launched as ``train_launches``
+    says (their fp32 routes); then the int8 optimizer given the CPU's
     gradients on both devices: the same codes (ties counted), scales within
-    1e-7 and updates within 1e-6 relative."""
+    1e-7 and updates within 1e-6 relative.  -> the kernel launches."""
     tr, ts = port["train"], port["train_step"]
-    cfg = dataclasses.replace(port["CONFIGS"]["llama3-8b"], n_layers=n_layers,
+    cfg = dataclasses.replace(port["CONFIGS"][arch], n_layers=n_layers,
                               dtype="float32", param_dtype="float32")
+    expect = train_launches(cfg)
     p_gpu = port["init_params"](cfg, torch.Generator(device=dev).manual_seed(1), dev)
     p_cpu = port["tree_map"](lambda t: t.cpu(), p_gpu)
     dcfg = port["DataConfig"](seq_len=seq, global_batch=1, vocab_size=cfg.vocab_size)
     batch = port["synthetic_batch"](dcfg, 0, cfg)
     loss_fn = ts.make_loss_fn(cfg, remat=True, fused_ce=True)
+    wrappers = port["wrappers"]
+    reset_counters(wrappers)
     g_gpu, m_gpu = ts.grad_fn(loss_fn, p_gpu, {k: v.to(dev) for k, v in batch.items()})
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     g_gpu = [g.cpu() for g in g_gpu]
     g_cpu, m_cpu = ts.grad_fn(loss_fn, p_cpu, batch)
     loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
@@ -1298,10 +1513,15 @@ def phase_train_consistency(torch, np, port, dev, card, n_layers=2, seq=128):
         "loss_rel_err": loss_err, "grad_err_over_leaf_max": grad_ratio,
         "int8_codes": n_codes, "int8_codes_one_apart": code_diffs, "int8_code_max_diff": code_max,
         "scale_max_abs_err": scale_err, "update_err_over_leaf_max": upd_ratio,
+        "launches": launches, "expected_launches": expect,
         "tol": {"loss_rel": 1e-5, "grad_over_leaf_max": 1e-3, "scale_abs": 1e-7,
                 "update_over_leaf_max": 1e-6},
         "ok": ok, "card": card,
     })
+    for name in wrappers:
+        check(launches[name] == expect.get(name, 0),
+              f"{arch} train consistency: {launches[name]} {name} launches, "
+              f"expected {expect.get(name, 0)}")
     check(loss_err <= 1e-5, f"train loss differs by {loss_err} relative between cuda and cpu")
     check(grad_ratio <= 1e-3, f"gradients differ by {grad_ratio} of their leaf's max")
     check(code_max <= 1 and scale_err <= 1e-7 and upd_ratio <= 1e-6,
@@ -1309,6 +1529,7 @@ def phase_train_consistency(torch, np, port, dev, card, n_layers=2, seq=128):
           f"updates {upd_ratio}")
     del p_gpu, u_g, s_g
     torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1326,6 +1547,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import mamba2_ssd as smod
     from repro_torch.kernels import mlstm as mmod
+    from repro_torch.kernels import ops
     from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
     from repro_torch.models import moe, transformer, xlstm
     from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
@@ -1347,7 +1569,10 @@ def main() -> int:
                   "mlstm": mmod.mlstm},
         ServeConfig=ServeConfig, rp=rp, KVStore=KVStore, ObjectStore=ObjectStore,
         tree_flatten=tree_flatten, tree_map=tree_map, xlstm=xlstm, moe=moe,
-        train=train, train_step=train_step, elastic=elastic, ckpt=ckpt, fmod=fmod,
+        PlainBackwardFn=_build.PlainBackwardFn,
+        plains={"flash_attention": fmod.flash_attention_plain, "ssd": smod.ssd_plain,
+                "mlstm": mmod.mlstm_plain},
+        train=train, train_step=train_step, elastic=elastic, ckpt=ckpt,
         DataConfig=DataConfig, synthetic_batch=synthetic_batch, WrenExecutor=WrenExecutor,
         tree_unflatten=tree_unflatten,
     )
@@ -1355,6 +1580,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):  # each phase's wall time, on stderr
+        laps.append(time.perf_counter())
+        print(f"[time] {name} {laps[-1] - laps[-2]:.1f}s", file=sys.stderr, flush=True)
 
     # phase 1: device and kernel build
     smi = subprocess.run(
@@ -1374,8 +1604,10 @@ def main() -> int:
         "build_s": build_s, "build_s_per_kernel": build,
     })
 
-    rows = phase_kernels(torch, dmod, fmod, smod, dev)
-    rows["mlstm"] = phase_mlstm(torch, mmod, dev)
+    lap("1 device and build")
+    rows = phase_kernels(torch, dmod, fmod, smod, ops, dev)
+    rows["mlstm"] = phase_mlstm(torch, mmod, ops, dev)
+    lap("2 kernels")
     attention = ("decode_attention", "flash_attention")
     deepseek = dataclasses.replace(CONFIGS["deepseek-v3-671b"], n_layers=DEEPSEEK_SERVE_LAYERS)
     launches = {}
@@ -1387,10 +1619,12 @@ def main() -> int:
         (deepseek, (), attention),  # MLA: Dv != D takes plain PyTorch by shape
     ):
         launches[cfg.name] = phase_serve(torch, np, port, dev, card, cfg, kernels, idle)
+        lap(f"3 serve {cfg.name}")
     whisper, vlm = CONFIGS["whisper-large-v3"], CONFIGS["internvl2-1b"]
     launches[whisper.name] = phase_whisper(torch, np, port, dev, card, whisper)
     launches[vlm.name] = phase_serve(torch, np, port, dev, card, vlm, attention)
     launches[vlm.name + "+prefix"] = phase_vlm_prefix(torch, np, port, dev, card, vlm)
+    lap("3f-3g whisper, internvl2")
     phase_consistency(torch, port, dev, "llama3-8b", 2, [48, 37])
     phase_consistency(torch, port, dev, "zamba2-1.2b", 7, [200, 200], with_forward=True)
     for n in (200, 137):  # exact-length prefill, as the engine groups xlstm prompts
@@ -1404,12 +1638,27 @@ def main() -> int:
     phase_consistency(torch, port, dev, "whisper-large-v3", 2, [48, 37], with_forward=True,
                       n_encoder_layers=2)
     phase_consistency(torch, port, dev, "internvl2-1b", 2, [48, 37], with_forward=True)
+    lap("4-4g consistency")
     llama = CONFIGS["llama3-8b"]
     launches["llama3-8b-train"] = phase_train_step(torch, np, port, dev, card, llama)
+    lap("5a llama3-8b train")
     launches["llama3-8b-elastic"] = phase_elastic(
         torch, np, port, dev, card, dataclasses.replace(llama, n_layers=ELASTIC_LAYERS))
-    phase_launch_train(card)
-    phase_train_consistency(torch, np, port, dev, card)
+    phase_launch_train(card, "llama3-8b")
+    lap("5b elastic, launch.train")
+    launches["llama3-8b-train-consistency"] = phase_train_consistency(torch, np, port, dev, card)
+    lap("5c train consistency")
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):  # phases 5d, 5e
+        launches[f"{arch}-train"] = phase_train_step(torch, np, port, dev, card, CONFIGS[arch])
+        lap(f"5d/5e {arch} train")
+    phase_launch_train(card, "xlstm-1.3b")
+    lap("5e launch.train xlstm-1.3b")
+    # phase 5f: one super block of 6 Mamba layers + the shared block + 1
+    # tail layer; one group of 7 mLSTM blocks + 1 sLSTM block
+    for arch, n in (("zamba2-1.2b", 7), ("xlstm-1.3b", 8)):
+        launches[f"{arch}-train-consistency"] = phase_train_consistency(
+            torch, np, port, dev, card, arch, n)
+        lap(f"5f {arch} train consistency")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
@@ -1421,6 +1670,11 @@ def main() -> int:
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     }
+
+    def train_times(name, case):
+        row = next(r for r in rows[name] if r["case"] == case)
+        return {**times(row), "backward_plain_ms": row["backward_plain_ms"]}
+
     kernels = []
     for name, (rep, src) in replaces.items():
         # the first row is the longest serving shape of the first phase that
@@ -1436,8 +1690,15 @@ def main() -> int:
         if name in ("decode_attention", "flash_attention"):  # at the other families' shapes too
             for arch in ("zamba2", "olmoe", "whisper", "internvl2"):
                 entry[arch] = times(next(r for r in rows[name] if r["case"].startswith(arch)))
-        if name == "flash_attention":  # the train step's shape (phase 5a)
+        # the train steps' shapes (phases 5a, 5d, 5e); 5d's and 5e's with
+        # the plain backward's time
+        if name == "flash_attention":
             entry["train"] = times(next(r for r in rows[name] if r["case"] == "train-2x1024"))
+            entry["zamba2_train"] = train_times(name, "zamba2-train-2x1024")
+        if name == "ssd":
+            entry["train"] = train_times(name, "train-2x1024")
+        if name == "mlstm":
+            entry["train"] = train_times(name, MLSTM_TRAIN_CASE)
         kernels.append(entry)
     print(f"{smi}  total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     emit({"kernels": kernels})

@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -104,9 +106,8 @@ def no_backward(kernel: str, *tensors) -> None:
     """Raise if autograd would need a gradient through ``kernel``: the CUDA
     kernels are forward-only (the JAX package has no backward kernel
     either), and a launch through raw pointers returns a tensor with no
-    ``grad_fn``, so the gradients of its inputs would silently be lost."""
-    import torch
-
+    ``grad_fn``, so the gradients of its inputs would silently be lost;
+    training goes through :class:`PlainBackwardFn` instead."""
     if torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     ):
@@ -114,6 +115,36 @@ def no_backward(kernel: str, *tensors) -> None:
             f"{kernel}: the CUDA kernel is forward-only and an input requires grad; "
             "run it under torch.no_grad(), or differentiate through its plain version"
         )
+
+
+class PlainBackwardFn(torch.autograd.Function):
+    """A forward-only kernel under autograd.
+
+    ``apply(fwd, plain, kw, *tensors)``: the forward is ``fwd(*tensors,
+    **kw)`` (a kernel's CUDA wrapper in training; a test may pass the plain
+    version) and saves the tensors as they are (strided views are not
+    copied; None stays None).  The backward recomputes the output with
+    ``plain(*tensors, **kw)`` (fp32 inside) and returns its gradients, each
+    in its input's dtype (None for a None input): the plain version's
+    derivative, as ``jax.grad`` of the Pallas kernel's reference would
+    give, not a backward kernel (neither package has one).  Whatever the
+    plain version materialises (attention's fp32 logits, each SSD chunk's
+    decay matrix) is made once per call."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, kw, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.plain, ctx.kw = plain, kw
+        return fwd(*tensors, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            out = ctx.plain(*leaves, **ctx.kw)
+            grads = iter(torch.autograd.grad(out, [t for t in leaves if t is not None], grad_out))
+        return (None, None, None, *(None if t is None else next(grads) for t in leaves))
 
 
 def ptxas_report(name: str) -> Optional[str]:

@@ -15,10 +15,11 @@ kernel (the serving path), fp32 the scalar one (held to the fp32 bar).
 taken (ragged tails are masked); Dv must equal D.
 
 The kernel is forward-only, as the Pallas kernel is (the JAX package has no
-backward kernel).  Training reaches it through :class:`FlashAttentionFn`,
-whose backward recomputes attention with the plain version and
-differentiates that; the wrapper itself raises when autograd would need a
-gradient through it.
+backward kernel).  Training reaches it through
+:class:`~._build.PlainBackwardFn` (``ops.flash_attention`` routes it), whose
+backward recomputes attention with the plain version and differentiates
+that; the wrapper itself raises when autograd would need a gradient through
+it.
 """
 
 from __future__ import annotations
@@ -117,31 +118,3 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.route_launches = {"scalar": 0, "mma": 0}
-
-
-class FlashAttentionFn(torch.autograd.Function):
-    """Attention under autograd with a forward-only kernel.
-
-    ``apply(q, k, v, kw, fwd)``: the forward is ``fwd(q, k, v, **kw)`` (the
-    CUDA wrapper :func:`flash_attention` in training; a test may pass the
-    plain version) and saves q, k and v.  The backward recomputes the
-    output with :func:`flash_attention_plain` (fp32 inside) and returns its
-    gradients: the plain version's derivative, as ``jax.grad`` of the
-    Pallas kernel's reference would give, not a backward kernel (neither
-    package has one).  Its (B, K, G, Sq, Sk) fp32 logits are materialised
-    once per call."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kw, fwd):
-        ctx.save_for_backward(q, k, v)
-        ctx.kw = kw
-        return fwd(q, k, v, **kw)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = flash_attention_plain(*leaves, **ctx.kw)
-            dq, dk, dv = torch.autograd.grad(out, leaves, grad_out)
-        return dq, dk, dv, None, None

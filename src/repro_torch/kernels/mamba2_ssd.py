@@ -19,6 +19,12 @@ with fp32 scratch for the chunks' states), fp32 the scalar kernel (held to
 the fp32 bar).  ``ssd.launches`` counts calls that launched,
 ``ssd.route_launches`` splits them by route.  Any S is taken: the kernels
 mask the ragged last chunk themselves.
+
+The kernel is forward-only, as the Pallas kernel is (the JAX package has no
+backward kernel).  Training reaches it through
+:class:`~._build.PlainBackwardFn` (``ops.ssd_scan`` routes it, y only),
+whose backward recomputes y with :func:`ssd_plain` and differentiates that;
+the wrapper itself raises when autograd would need a gradient through it.
 """
 
 from __future__ import annotations
@@ -77,7 +83,10 @@ def _chunked_scan(x, dt, A, Bmat, Cmat, D, chunk: int):
         a_cum = torch.cumsum(Af * dtc, dim=1)  # (B,c,H), inclusive
         a_tot = a_cum[:, -1, :]  # (B,H)
         seg = a_cum[:, :, None, :] - a_cum[:, None, :, :]  # (B,t,s,H)
-        L = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        # masked before the exp: above the diagonal seg > 0 can overflow,
+        # and exp's inf there would make the gradient 0 * inf = nan (the
+        # forward is the same as masking after the exp)
+        L = torch.exp(torch.where(tri[None, :, :, None], seg, -torch.inf))
         scores = torch.einsum("bthk,bshk->btsh", cc, bc) * L * dtc[:, None, :, :]
         y_intra = torch.einsum("btsh,bshp->bthp", scores, xc)
         y_inter = torch.einsum("bch,bchk,bhpk->bchp", torch.exp(a_cum), cc, h)

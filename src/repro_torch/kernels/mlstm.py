@@ -24,6 +24,13 @@ Both sides get the forget-gate cumsum ``F = cumsum(log sigmoid f)`` from
 :func:`gate_cumsum`, as the Pallas wrapper computes it outside its kernel,
 so the kernel and the plain version see the same bits of F (and the mLSTM
 block's closed-form prefill state uses the same F).
+
+The kernels are forward-only, as the Pallas kernel is (the JAX package has
+no backward kernel).  Training reaches them through
+:class:`~._build.PlainBackwardFn` (``ops.mlstm_parallel`` routes it), whose
+backward recomputes the cell with :func:`mlstm_plain` and differentiates
+that; the wrapper itself raises when autograd would need a gradient
+through it.
 """
 
 from __future__ import annotations

@@ -8,11 +8,14 @@ on any device call ``ref`` (or the kernel modules' ``*_plain``) directly.
 ``ssd_decode_step`` and ``mlstm_decode_step`` are plain PyTorch on every
 device: the JAX package has no kernel for them either.
 
-A CUDA flash attention call that autograd must differentiate (grad mode on
-and an input requiring grad: the train step) runs the kernel inside
-``FlashAttentionFn``, whose backward recomputes through the plain version;
-every other call goes to the wrapper as it is, so serving launches are
-unchanged.  On the CPU the plain version is differentiable as it stands.
+A CUDA call that autograd must differentiate (grad mode on and an input
+requiring grad: the train step) of flash attention, the SSD scan or the
+mLSTM runs the kernel inside ``_build.PlainBackwardFn``, whose backward
+recomputes through the kernel's plain version; every other call goes to the wrapper as it is,
+so serving launches are unchanged.  The SSD scan under autograd returns y
+only (a ``return_state`` request raises); decode attention and the
+wrappers called directly raise under autograd.  On the CPU the plain
+versions are differentiable as they stand.
 
 Attention whose value head dim differs from the query's (MLA: Dqk 192,
 Dv 128) is sent to plain PyTorch by shape on every device, as the JAX
@@ -31,11 +34,14 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
+from ._build import PlainBackwardFn
 from .decode_attention import decode_attention
-from .flash_attention import FlashAttentionFn
 from .flash_attention import flash_attention as flash_attention_kernel
-from .mamba2_ssd import ssd as ssd_scan
-from .mlstm import mlstm as mlstm_parallel
+from .flash_attention import flash_attention_plain
+from .mamba2_ssd import ssd as ssd_kernel
+from .mamba2_ssd import ssd_plain
+from .mlstm import mlstm as mlstm_kernel
+from .mlstm import mlstm_plain
 
 __all__ = [
     "attention_chunked", "decode_attention", "flash_attention", "mlstm_decode_step",
@@ -43,6 +49,21 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
+
+
+def _grad_on_card(*tensors) -> bool:
+    """A CUDA call that autograd must differentiate: grad mode on and an
+    input requiring grad."""
+    return (tensors[0].device.type == "cuda" and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors))
+
+
+def _launch(kernel, plain, kw, *tensors):
+    """``kernel(*tensors, **kw)``, inside ``PlainBackwardFn`` (the plain
+    version's derivative) where autograd must differentiate a CUDA call."""
+    if _grad_on_card(*tensors):
+        return PlainBackwardFn.apply(kernel, plain, kw, *tensors)
+    return kernel(*tensors, **kw)
 
 
 def attention_chunked(
@@ -112,20 +133,55 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, Sq, H, D) x (B, Sk, K, D) x (B, Sk, K, Dv) -> (B, Sq, H, Dv) in
     q's dtype.  Dv == D: the kernel's wrapper (the CUDA kernel on a CUDA
-    tensor, through ``FlashAttentionFn`` where autograd needs its
+    tensor, through ``PlainBackwardFn`` where autograd needs its
     gradient; its plain version on a CPU one).  Dv != D: plain PyTorch on
     every device, the reference up to Sq * Sk <= 256^2, else the chunked
     scan."""
     kw = dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset)
     if v.shape[-1] == q.shape[-1]:
-        if (q.device.type == "cuda" and torch.is_grad_enabled()
-                and (q.requires_grad or k.requires_grad or v.requires_grad)):
-            return FlashAttentionFn.apply(q, k, v, dict(scale=scale, **kw), flash_attention_kernel)
-        return flash_attention_kernel(q, k, v, scale=scale, **kw)
+        return _launch(flash_attention_kernel, flash_attention_plain, dict(scale=scale, **kw),
+                       q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] * k.shape[1] <= 256 * 256:
         return ref.mha_reference(q, k, v, scale=scale, **kw)
     return attention_chunked(q, k, v, scale=scale, **kw)
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) fp32
+    A: torch.Tensor,  # (H,) fp32
+    Bmat: torch.Tensor,  # (B, S, G, N)
+    Cmat: torch.Tensor,  # (B, S, G, N)
+    D: Optional[torch.Tensor] = None,  # (H,) fp32
+    *,
+    chunk: int = 128,
+    return_state: bool = False,
+):
+    """The SSD scan from a zero state -> y, and with ``return_state`` also
+    the fp32 final state: the kernel's wrapper (the CUDA kernel on a CUDA
+    tensor, through ``PlainBackwardFn`` where autograd needs its gradient;
+    its plain version on a CPU one).  Under autograd on the card the state
+    is refused: it would come back with no gradient."""
+    if return_state and _grad_on_card(x, dt, A, Bmat, Cmat, D):
+        raise RuntimeError("ssd: the final state has no gradient; under autograd the scan "
+                           "returns y only (call it under torch.no_grad() for the state)")
+    return _launch(ssd_kernel, ssd_plain, dict(chunk=chunk, return_state=return_state),
+                   x, dt, A, Bmat, Cmat, D)
+
+
+def mlstm_parallel(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,  # (B, S, H)
+    f_gate: torch.Tensor,  # (B, S, H)
+) -> torch.Tensor:
+    """The stabilized parallel mLSTM -> (B, S, H, D) in q's dtype: the
+    kernel's wrapper (the CUDA kernels on a CUDA tensor, through
+    ``PlainBackwardFn`` where autograd needs its gradient; its plain
+    version on a CPU one)."""
+    return _launch(mlstm_kernel, mlstm_plain, {}, q, k, v, i_gate, f_gate)
 
 
 def ssd_decode_step(

@@ -23,12 +23,15 @@ Decode attention is one kernel for every dtype mix (fp32 math), one
 launch per call with a cluster of CTAs per (row, kv head).
 
 Training (fp32 and bf16): attention under autograd runs the flash kernel
-forward inside ``FlashAttentionFn``, whose backward is the plain version's
-derivative, so the gradients are held to autograd of the plain version at
-1e-6 relative (the same computation; fp32 inside); the other three
-wrappers raise under autograd; one reduced llama3-8b train step on the card
-against the CPU (fp32, TF32 off): loss and metrics 1e-5, parameters 1e-5
-but for at most 1e-4 of the elements, all within lr.
+forward inside ``_build.PlainBackwardFn``, whose backward is the plain
+version's derivative, so the gradients are held to autograd of the plain
+version at 1e-6 relative (the same computation; fp32 inside); the SSD scan
+and the mLSTM run theirs inside it the same way, their gradients held equal to autograd of the plain version bit for bit; the
+wrappers called directly (and decode attention) raise under autograd; one
+reduced train step on the card against the CPU (fp32, TF32 off) for
+llama3-8b, xlstm-1.3b and zamba2-1.2b (its reduced config widened to the
+SSD kernel's P = N = 64): loss and metrics 1e-5, parameters 1e-5 but for
+at most 1e-4 of the elements, all within lr.
 """
 
 import dataclasses
@@ -607,6 +610,79 @@ def test_flash_attention_gradients_through_the_kernel(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,with_d", [(300, True), (77, False), (1024, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradients_through_the_kernel(cuda, S, with_d, dtype):
+    """``ops.ssd_scan`` under autograd: one launch per call on the dtype's
+    route, x, B and C taken as views of the conv output; the gradients of
+    every input equal autograd of the plain version; the state refused."""
+    rng = np.random.default_rng(S + 11)
+    Bz, H, G = 2, 8, 2
+    d_in, gn = H * 64, G * 64
+    xbc = _t(rng, (Bz, S, d_in + 2 * gn), cuda, dtype)
+    _, dt, A, _, _, D = _ssd_inputs(rng, Bz, S, H, G, cuda, dtype, with_d)
+    go = _t(rng, (Bz, S, H, 64), cuda, dtype)
+    base = [t for t in (xbc, dt, A, D) if t is not None]
+
+    def run(leaves, fn):
+        x = leaves[0][..., :d_in].reshape(Bz, S, H, 64)
+        Bm = leaves[0][..., d_in:d_in + gn].reshape(Bz, S, G, 64)
+        Cm = leaves[0][..., d_in + gn:].reshape(Bz, S, G, 64)
+        return fn(x, leaves[1], leaves[2], Bm, Cm, leaves[3] if with_d else None, chunk=128)
+
+    ins = [t.clone().requires_grad_(True) for t in base]
+    route = smod.ROUTES[dtype]
+    before, before_route = smod.ssd.launches, smod.ssd.route_launches[route]
+    out = run(ins, ops.ssd_scan)
+    assert smod.ssd.launches == before + 1 and smod.ssd.route_launches[route] == before_route + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, go)
+    ref = [t.clone().requires_grad_(True) for t in base]
+    exp_out = run(ref, smod.ssd_plain)
+    exp = torch.autograd.grad(exp_out, ref, go)
+    assert_matches_plain(out.detach(), exp_out.detach())
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and a.abs().max() > 0
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="ssd"):
+        run(ins, lambda *a, **k: ops.ssd_scan(*a, **k, return_state=True))
+    with torch.no_grad():  # serving calls go to the wrapper as they are
+        assert run(ins, ops.ssd_scan).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,dtype,model_gates", [
+    (1, 300, 4, 1024, torch.bfloat16, True),   # xlstm-1.3b, the blockwise plain backward
+    (2, 77, 3, 192, torch.bfloat16, False),
+    (2, 130, 2, 128, torch.float32, False),
+])
+def test_mlstm_gradients_through_the_kernel(cuda, B, S, H, D, dtype, model_gates):
+    """``ops.mlstm_parallel`` under autograd: one launch per call on the
+    dtype's route; the gradients of q, k, v and both gates equal autograd
+    of the plain version (the gates' in fp32)."""
+    rng = np.random.default_rng(S + D)
+    base = _mlstm_inputs(rng, B, S, H, D, cuda, dtype, model_gates)
+    go = _t(rng, (B, S, H, D), cuda, dtype)
+    ins = [t.clone().requires_grad_(True) for t in base]
+    route = mmod.ROUTES[dtype]
+    before, before_route = mmod.mlstm.launches, mmod.mlstm.route_launches[route]
+    out = ops.mlstm_parallel(*ins)
+    assert mmod.mlstm.launches == before + 1
+    assert mmod.mlstm.route_launches[route] == before_route + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, ins, go)
+    ref = [t.clone().requires_grad_(True) for t in base]
+    exp_out = mmod.mlstm_plain(*ref)
+    exp = torch.autograd.grad(exp_out, ref, go)
+    _check_mlstm(out.detach(), exp_out.detach())
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and a.abs().max() > 0
+        assert torch.equal(a, b)
+    assert got[3].dtype == got[4].dtype == torch.float32
+    with torch.no_grad():
+        assert ops.mlstm_parallel(*ins).grad_fn is None
+
+
+@pytest.mark.cuda
 def test_forward_only_kernels_raise_under_autograd(cuda):
     rng = np.random.default_rng(6)
     q = _t(rng, (2, 8, 64), cuda, torch.float32).requires_grad_(True)
@@ -653,6 +729,47 @@ def test_reduced_train_step_cuda_matches_cpu(cuda, monkeypatch, fused):
     # Adam moves an element whose gradient is near eps by up to lr in a
     # direction its noise sets (measured: 2 of 32768 elements of one leaf,
     # 1.2e-4 = 0.12 lr); all others within 1e-5
+    diffs = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in
+                       zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0])])
+    assert int((diffs > 1e-5).sum()) <= 1e-4 * diffs.numel()
+    assert float(diffs.max()) <= 1e-3
+
+
+def _widened_hybrid():
+    """The reduced hybrid with the SSD kernel's P = N = 64 (d_model 128:
+    4 heads of 64); the reduced config's P = N = 16 the kernel refuses."""
+    cfg = CONFIGS["zamba2-1.2b"].reduced()
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, head_dim=64, state_dim=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_recurrent_train_step_cuda_matches_cpu(cuda, monkeypatch, arch):
+    """One train step (remat, the fused CE) through the SSD or mLSTM kernel
+    on the card against the plain versions on the CPU, as the llama3-8b
+    step above: each kernel launched twice per layer (the forward and the
+    recompute)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    if arch == "zamba2-1.2b":
+        cfg, counter = _widened_hybrid(), smod.ssd
+        layers = cfg.n_layers
+    else:
+        cfg, counter = CONFIGS[arch].reduced(), mmod.mlstm
+        layers = cfg.n_layers - cfg.n_layers // cfg.xlstm.slstm_every
+    opt = topt.adamw(1e-3)
+    step = tts.make_train_step(cfg, opt, remat=True, fused_ce=True)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 41)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = counter.launches
+    s_gpu, m_gpu = step(tts.TrainState(tree_map(lambda t: t.to(cuda), p_cpu),
+                                       opt.init(tree_map(lambda t: t.to(cuda), p_cpu))),
+                        {k: v.to(cuda) for k, v in batch.items()})
+    assert counter.launches - before == 2 * layers
+    s_cpu, m_cpu = step(tts.TrainState(p_cpu, opt.init(p_cpu)), batch)
+    for k in m_cpu:
+        assert float(m_gpu[k]) == pytest.approx(float(m_cpu[k]), rel=1e-5, abs=1e-5), k
     diffs = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in
                        zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0])])
     assert int((diffs > 1e-5).sum()) <= 1e-4 * diffs.numel()

@@ -35,6 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import CONFIGS as JCONFIGS  # noqa: E402
 from repro.data import DataConfig as JDataConfig  # noqa: E402
 from repro.data import synthetic_batch as j_synthetic_batch  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.storage import ObjectStore as JObjectStore  # noqa: E402
 from repro.train import checkpoint as jck  # noqa: E402
@@ -46,7 +47,10 @@ from repro_torch.configs import CONFIGS as TCONFIGS  # noqa: E402
 from repro_torch.core import WrenExecutor  # noqa: E402
 from repro_torch.data import DataConfig, synthetic_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels._build import PlainBackwardFn  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as smod  # noqa: E402
 from repro_torch.kernels import mlstm as mmod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import init_params as t_init_params  # noqa: E402
 from repro_torch.storage import ObjectStore  # noqa: E402
 from repro_torch.train import checkpoint as ck  # noqa: E402
@@ -248,6 +252,9 @@ LOSS_CASES = [
     ("olmoe-1b-7b", {"n_layers": 2}),  # MoE aux loss
     ("deepseek-v3-671b", {"n_layers": 2}),  # MLA, dense prefix, MTP head
     ("internvl2-1b", {"n_layers": 2}),  # prefix labels set to -1
+    ("zamba2-1.2b", {}),  # Mamba2 super blocks + the shared attention block
+    ("xlstm-1.3b", {}),  # mLSTM blocks + an sLSTM block
+    ("whisper-large-v3", {"n_layers": 2}),  # encoder over the audio frames
 ]
 
 
@@ -281,6 +288,20 @@ def test_gradients_match_jax_and_remat_changes_nothing():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
         tol = 1e-4 * float(j.abs().max())
         assert float((a - j).abs().max()) <= tol
+        assert float(a.abs().max()) > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_gradients_match_jax(arch):
+    """The hybrid's SSD scan and the xLSTM's cells (JAX: its jnp scan on
+    the CPU) under autograd, remat on: each leaf within 1e-4 of its max."""
+    jc, tc, jp, tp = _model(arch)
+    jb, tb = _batches(jc)
+    jg = jax.grad(lambda p: jts.make_loss_fn(jc)(p, jb)[0])(jp)
+    jg_port = params_from_jax(jax.tree_util.tree_map(np.asarray, jg), tc)
+    g, _ = tts.grad_fn(tts.make_loss_fn(tc, remat=True), tp, tb)
+    for a, j in zip(g, tree_flatten(jg_port)[0]):
+        assert float((a - j).abs().max()) <= 1e-4 * float(j.abs().max())
         assert float(a.abs().max()) > 0
 
 
@@ -388,7 +409,7 @@ def test_grad_clip_bounds_update():
 
 
 # ---------------------------------------------------------------------------
-# FlashAttentionFn: the backward plumbing, with the plain forward plugged in
+# PlainBackwardFn: the backward plumbing, with the plain forward plugged in
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=5, logit_cap=20.0),
@@ -399,12 +420,167 @@ def test_flash_attention_fn_backward_equals_autograd_of_plain(kw):
                for s in ((2, 13, 4, 16), (2, 13, 2, 16), (2, 13, 2, 16)))
     go = _t(rng.normal(size=(2, 13, 4, 16)).astype(np.float32))
     ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = fmod.FlashAttentionFn.apply(*ins, kw, fmod.flash_attention_plain)
+    plain = fmod.flash_attention_plain
+    out = PlainBackwardFn.apply(plain, plain, kw, *ins)
     got = torch.autograd.grad(out, ins, go)
     ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
     exp_out = fmod.flash_attention_plain(*ref, **kw)
     exp = torch.autograd.grad(exp_out, ref, go)
     torch.testing.assert_close(out, exp_out, atol=0, rtol=0)
+    for a, b in zip(got, exp):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan and the mLSTM through PlainBackwardFn, the plain forward plugged in
+# ---------------------------------------------------------------------------
+
+def _fn_and_plain(run, base, go):
+    """[(output, grads of every leaf)] of ``run(leaves, through_fn)``
+    through the Function and through the plain version, each from fresh
+    leaves of ``base`` (None stays None)."""
+    runs = []
+    for through_fn in (True, False):
+        leaves = [None if t is None else t.clone().requires_grad_(True) for t in base]
+        out = run(leaves, through_fn)
+        runs.append((out, torch.autograd.grad(out, [t for t in leaves if t is not None], go)))
+    return runs
+
+
+def _assert_bit_equal(runs, n_grads):
+    (out, got), (exp_out, exp) = runs
+    torch.testing.assert_close(out, exp_out, atol=0, rtol=0)
+    assert len(got) == len(exp) == n_grads
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype and float(b.abs().max()) > 0
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("S,chunk,with_d", [(37, 16, True), (64, 16, False), (5, 16, True)])
+def test_ssd_fn_backward_equals_autograd_of_plain(S, chunk, with_d):
+    """A ragged last chunk, D = None, S below the chunk; x, B and C are
+    views of one conv-output buffer, taken as they are."""
+    rng = np.random.default_rng(S)
+    Bz, H, G, P, N = 2, 4, 2, 8, 8
+    d_in, gn = H * P, G * N
+    xbc = _t(rng.normal(size=(Bz, S, d_in + 2 * gn)).astype(np.float32))
+    dt = _t(np.log1p(np.exp(rng.normal(size=(Bz, S, H)))).astype(np.float32))
+    A = _t(-np.exp(rng.normal(size=(H,))).astype(np.float32))
+    D = _t(rng.normal(size=(H,)).astype(np.float32)) if with_d else None
+    go = _t(rng.normal(size=(Bz, S, H, P)).astype(np.float32))
+    kw = dict(chunk=chunk, return_state=False)
+
+    def run(leaves, through_fn):
+        xbc, dt, A, D = leaves
+        x = xbc[..., :d_in].reshape(Bz, S, H, P)
+        Bm = xbc[..., d_in:d_in + gn].reshape(Bz, S, G, N)
+        Cm = xbc[..., d_in + gn:].reshape(Bz, S, G, N)
+        assert not x.is_contiguous()
+        if through_fn:
+            return PlainBackwardFn.apply(smod.ssd_plain, smod.ssd_plain, kw, x, dt, A, Bm, Cm, D)
+        return smod.ssd_plain(x, dt, A, Bm, Cm, D, **kw)
+
+    _assert_bit_equal(_fn_and_plain(run, (xbc, dt, A, D), go), 4 if with_d else 3)
+
+
+def test_ssd_plain_gradient_is_finite_where_a_chunk_decay_overflows():
+    """zamba2-1.2b's A = -(1..64) and dt up to 0.1 make a 128-row chunk's
+    decay exp(a_t - a_s) overflow fp32 above the diagonal, which the scan
+    masks away.  JAX's jnp scan masks after the exp, so its gradient is
+    nan there (0 * inf); the port masks before it: the same forward, and
+    the gradient of the same function taken with chunks short enough not
+    to overflow (JAX's, at chunk 8)."""
+    rng = np.random.default_rng(12)
+    Bz, S, H, G, P, N = 1, 160, 4, 1, 8, 8
+    x, Bm, Cm = (rng.normal(size=s).astype(np.float32)
+                 for s in ((Bz, S, H, P), (Bz, S, G, N), (Bz, S, G, N)))
+    dt = rng.uniform(0.05, 0.1, size=(Bz, S, H)).astype(np.float32)
+    A = -np.array([1.0, 8.0, 32.0, 64.0], np.float32)
+    D = np.ones((H,), np.float32)
+
+    def jgrads(chunk):
+        def f(*args):
+            return jops.ssd_scan(*args, chunk=chunk).sum()
+
+        return jax.grad(f, argnums=tuple(range(6)))(*map(jnp.asarray, (x, dt, A, Bm, Cm, D)))
+
+    assert any(bool(jnp.isnan(g).any()) for g in jgrads(128))
+    exp = jgrads(8)
+    ins = [_t(a).requires_grad_(True) for a in (x, dt, A, Bm, Cm, D)]
+    y = smod.ssd_plain(*ins, chunk=128)
+    got = torch.autograd.grad(y.sum(), ins)
+    np.testing.assert_allclose(
+        y.detach().numpy(),
+        np.asarray(jops.ssd_scan(*map(jnp.asarray, (x, dt, A, Bm, Cm, D)), chunk=128)),
+        rtol=2e-5, atol=2e-5)
+    for a, j in zip(got, exp):
+        j = np.asarray(j)
+        assert bool(torch.isfinite(a).all())
+        assert float(np.abs(a.numpy() - j).max()) <= 1e-4 * float(np.abs(j).max())
+
+
+def test_ssd_fn_refuses_the_state(monkeypatch):
+    """Under autograd on the card (the CPU stands in) ``ops.ssd_scan``
+    refuses the final state, naming the kernel."""
+    monkeypatch.setattr(ops, "_grad_on_card", lambda *t: True)
+    x = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    with pytest.raises(RuntimeError, match="ssd"):
+        ops.ssd_scan(x, torch.ones((1, 4, 2)), -torch.ones(2), torch.zeros((1, 4, 1, 8)),
+                     torch.zeros((1, 4, 1, 8)), None, chunk=4, return_state=True)
+
+
+@pytest.mark.parametrize("S", [13, 320])  # the reference; the blockwise scan (S > 256)
+def test_mlstm_fn_backward_equals_autograd_of_plain(S):
+    rng = np.random.default_rng(S)
+    B, H, D = 1, 2, 16
+    base = [_t(rng.normal(size=(B, S, H, D)).astype(np.float32)) for _ in range(3)]
+    base += [_t((rng.normal(size=(B, S, H)) + b).astype(np.float32)) for b in (0.0, 2.0)]
+    go = _t(rng.normal(size=(B, S, H, D)).astype(np.float32))
+
+    def run(leaves, through_fn):
+        if through_fn:
+            return PlainBackwardFn.apply(mmod.mlstm_plain, mmod.mlstm_plain, {}, *leaves)
+        return mmod.mlstm_plain(*leaves)
+
+    _assert_bit_equal(_fn_and_plain(run, base, go), 5)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_ops_route_through_the_functions_under_remat(monkeypatch, arch):
+    """``ops`` as it routes on the card (the CPU stands in: its plain
+    versions, counted, take the kernels' place): under per-layer remat each
+    layer's Function runs its forward twice (the forward, then the
+    recompute) and its backward once, and the gradients equal the plain
+    path's bit for bit."""
+    cfg = TCONFIGS[arch].reduced()
+    p = t_init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = synthetic_batch(DataConfig(seq_len=24, global_batch=2, vocab_size=cfg.vocab_size),
+                            0, cfg)
+    loss_fn = tts.make_loss_fn(cfg, remat=True)
+    exp, _ = tts.grad_fn(loss_fn, p, batch)
+    name, plain = (("ssd_kernel", smod.ssd_plain) if arch == "zamba2-1.2b"
+                   else ("mlstm_kernel", mmod.mlstm_plain))
+    calls = {"forward": 0, "backward": 0}
+
+    def kernel(*a, **k):
+        calls["forward"] += 1
+        return plain(*a, **k)
+
+    orig = PlainBackwardFn.backward
+
+    def backward(ctx, *g):
+        calls["backward"] += ctx.plain is plain
+        return orig(ctx, *g)
+
+    monkeypatch.setattr(ops, "_grad_on_card", lambda *t: torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in t))
+    monkeypatch.setattr(ops, name, kernel)
+    monkeypatch.setattr(PlainBackwardFn, "backward", staticmethod(backward))
+    got, _ = tts.grad_fn(loss_fn, p, batch)
+    layers = cfg.n_layers  # the hybrid's Mamba layers; the xLSTM's mLSTM blocks:
+    if arch == "xlstm-1.3b":
+        layers -= cfg.n_layers // cfg.xlstm.slstm_every
+    assert calls == {"forward": 2 * layers, "backward": layers}
     for a, b in zip(got, exp):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
