@@ -92,7 +92,7 @@ script exits non-zero:
    remat recompute) all on the tensor-core route, peak memory under 75 GB;
    step time, tokens/s, the device-busy share, the flash forward's device
    time against the plain attention backward's;
-5b. elastic: llama3-8b width cut to 4 layers through ``train_elastic`` on
+5b. elastic: llama3-8b width cut to 2 layers through ``train_elastic`` on
    ``WrenExecutor(num_workers=2)`` over the in-memory store (int8 moments,
    fused CE, 2 steps per chunk, 6 steps scaled to 3 workers at chunk 1,
    then a resume to 8): versions 3 then 4, a warm start, and chunk 0 run
@@ -110,9 +110,10 @@ script exits non-zero:
    leaf's gradient nonzero (in_proj, A_log, dt_bias and D of every Mamba
    layer, the shared block's wq/wk/wv among them), peak memory under 14
    GB; the device ms of the plain SSD and attention backwards;
-5e. train: xlstm-1.3b at full width and depth (42 mLSTM + 6 sLSTM blocks;
-   2.024 B) the same way: the mLSTM kernels inside ``PlainBackwardFn``, exactly 84
-   launches per step (all on the tensor-core route), every leaf nonzero
+5e. train: xlstm-1.3b at full width cut to 2 of its 6 groups
+   (``XLSTM_TRAIN_LAYERS``: 14 mLSTM + 2 sLSTM blocks) the same way: the
+   mLSTM kernels inside ``PlainBackwardFn``, exactly 28 launches per step
+   (all on the tensor-core route), every leaf nonzero
    (w_qhw/w_khw/w_vhw/w_igate/w_fgate of every mLSTM block and r_kernel of
    every sLSTM block among them), peak memory under 19 GB, its sequence
    cut to 4 x 512 tokens (``TRAIN_SHAPE``: the sLSTM loop's time); the
@@ -122,7 +123,33 @@ script exits non-zero:
 5f. train consistency as in 5c for zamba2 width at 7 layers (one super
    block of 6 Mamba layers with the shared block, one tail layer) and
    xlstm width at 8 (7 mLSTM + 1 sLSTM), the fp32 kernels launched as the
-   layers imply.
+   layers imply;
+6a. storage: the file stores across two processes on the card machine's
+   filesystem (CPU only): a ``blpop`` woken by the other process's push, a
+   ``put_if_absent`` race in which each key has one winner, and the
+   committed prefix after a SIGKILLed writer plus half a frame; the
+   watcher's mode (inotify or poll) and its ``poll_wakeups``;
+6b. serve over shared roots: llama3-8b at full width and depth (32 layers,
+   bf16 weights from seed 0, the fp32 cache) in ``python -m
+   repro_torch.launch.serve --kv-root K --obj-root O`` workers, the smoke's
+   own process holding no model: one worker serves 16 requests (prompts of
+   16-300 tokens from seed 0, 64 new tokens, 4 slots); then two workers
+   serve them again, and one is SIGKILLed once it has published a result
+   and still holds live leases; the survivor finishes every request, one
+   result object each, the victim's results untouched, and exits 0 on
+   idle; each worker's time to READY, the kill-to-last-result time, the
+   survivor's tokens/s, both worker PIDs among the card's processes with
+   their weights' memory, how many requests' tokens equal the one-worker
+   run's (bf16 GEMMs at other batch compositions may break near-ties, so
+   that count is reported, not required); each worker's kernel launches
+   (its ``launches`` line);
+6c. elastic resume: llama3-8b width cut to 2 layers (bf16, int8 moments, 2
+   x 512 tokens, 2 steps a chunk): 4 chunks uninterrupted (in-memory
+   store), then 2 chunks on a ``FileBackend`` root here and 2 more in a
+   fresh process over the same root, whose losses must equal the
+   uninterrupted run's bit for bit; the disk's room first (three versions'
+   worth or the phase fails), the bytes of a version and the seconds to
+   write and read one.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving and training phase, error and
@@ -1102,11 +1129,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3  # phases 5a, 5d, 5e
 # 2048 tokens of a step
 TRAIN_SHAPE = {"xlstm-1.3b": (4, 512)}
 MLSTM_TRAIN_CASE = "train-%dx%d" % TRAIN_SHAPE["xlstm-1.3b"]  # phase 2's row at 5e's shape
-ELASTIC_LAYERS, ELASTIC_SEQ = 4, 512  # phase 5b: llama3-8b width, 1.92 B parameters
+# phase 5b: llama3-8b width cut to 2 layers, 1.487 B parameters (4 layers
+# until phase 6 needed the time)
+ELASTIC_LAYERS, ELASTIC_SEQ = 2, 512
+# phase 5e: xlstm-1.3b cut to 2 of its 6 groups (14 mLSTM + 2 sLSTM blocks)
+# to fit phase 6 in the time limit: the sLSTM loop and the summary of its
+# profiled step grow with the depth (5e took 207.9-245.6 s at 48 blocks)
+XLSTM_TRAIN_LAYERS = 16
 # peak memory of the train phases.  5d and 5e: the parameters and int8
 # moments measured on an H100 plus twice the rest of the measured peak
 # (gradients, activations, the plain backwards' fp32 temporaries):
-# zamba2 4.94 + 2 x 4.56 GB, xlstm 8.42 + 2 x 5.23 GB
+# zamba2 4.94 + 2 x 4.56 GB, xlstm 8.42 + 2 x 5.23 GB (at 48 blocks; 5e's
+# 16-block cut stays below it)
 MEM_LIMIT_GB = {
     "llama3-8b": 75.0,  # 5a: about 48 GB persistent + one leaf's temporaries
     "zamba2-1.2b": 14.0,
@@ -1142,13 +1176,13 @@ def train_launches(cfg):
     return {"flash_attention": 2 * cfg.n_layers}
 
 
-# the launches per step of the full-depth models (phases 5a, 5d, 5e), as
-# numbers: 32 attention layers; 38 Mamba layers and 6 shared-block calls;
-# 42 mLSTM blocks
+# the launches per step of phases 5a, 5d and 5e, as numbers: 32 attention
+# layers; 38 Mamba layers and 6 shared-block calls; 14 mLSTM blocks (5e's
+# 16 of 48)
 TRAIN_LAUNCHES = {
     "llama3-8b": {"flash_attention": 64},
     "zamba2-1.2b": {"ssd": 76, "flash_attention": 12},
-    "xlstm-1.3b": {"mlstm": 84},
+    "xlstm-1.3b": {"mlstm": 28},
 }
 
 
@@ -1532,14 +1566,517 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
     return launches
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+# ---------------------------------------------------------------------------
+# phase 6: the storage plane (file stores, stateless workers over shared roots)
+# ---------------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 2
+SERVE_WORKER_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--max-len", "1024",
+                     "--new-tokens", "64", "--lease-timeout", "2"]  # phase 6b
+SHARED_REQUESTS = 16  # phase 6b: requests per run, prompts of 16-300 tokens
+# phase 6b: a worker exits after its queue stays empty this long, which must
+# outlast a dead peer's lease (2 s) and one reap period (2 s) or the
+# survivor leaves before it can re-serve the victim's requests
+WORKER_IDLE_S = 5
+RESUME_LAYERS, RESUME_SEQ = 2, 512  # phase 6c: llama3-8b width, 2 x 512 tokens a step
+CHILD_TIMEOUT_S = 300
+
+
+def src_env():
+    import os
+
+    src = str(Path(__file__).resolve().parent / "src")
+    return dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def spawn_child(*args, env=None):
+    """This script as a child process (``child <role> ...``), lines on stdout."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "child", *args],
+                            env=env or src_env(), text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+
+def child_json(proc, what):
+    """The last stdout line of a child that must exit 0, as JSON."""
+    try:
+        out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        check(False, f"{what} did not finish in {CHILD_TIMEOUT_S} s")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def child_main(role, args) -> int:
+    """The child processes of phases 6a and 6c."""
+    import os
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.storage import FileBackend, FileKVStore, ObjectStore
+
+    if role == "blpop":  # 6a: block in blpop until the parent's push lands
+        kv = FileKVStore(args[0], num_shards=1)
+        print("ready", flush=True)
+        got = kv.blpop("wake", timeout_s=30.0)
+        w = kv._watcher
+        print(json.dumps({"latency_s": time.time() - got, "mode": w.mode,
+                          "poll_wakeups": w.poll_wakeups}), flush=True)
+        kv.close()
+    elif role == "race":  # 6a: put_if_absent on every key the parent races for
+        kv = FileKVStore(args[0], num_shards=1)
+        store = ObjectStore(backend=FileBackend(args[1]))
+        print("ready", flush=True)
+        kv.blpop("go", timeout_s=30.0)
+        wins = [k for k in range(int(args[2])) if store.put(f"race/{k}", "child", if_absent=True)]
+        print(json.dumps({"wins": len(wins)}), flush=True)
+    elif role == "writer":  # 6a: append until SIGKILLed
+        kv = FileKVStore(args[0], num_shards=1, fsync="never")
+        i = 0
+        while True:
+            kv.rpush("log", i, worker="w")
+            kv.mset({"a": i, "b": i}, worker="w")
+            i += 1
+    elif role == "elastic":  # 6c: resume the run of the pickled config from the root
+        import pickle
+
+        os.environ["REPRO_FUSED_CE"] = "1"
+        cfg = pickle.loads(bytes.fromhex(args[3]))
+        hist = elastic_run(cfg, args[0], int(args[1]), args[2])
+        print(json.dumps({"losses": [h["loss"] for h in hist]}), flush=True)
+    else:
+        raise SystemExit(f"unknown child role {role!r}")
+    return 0
+
+
+def phase_storage(card):
+    """6a: the file stores' contract across two processes on this machine's
+    filesystem (CPU only): a blpop woken by another process's push, a
+    put_if_absent race that each key's one writer wins, and the committed
+    prefix after a SIGKILLed writer plus a torn frame."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.storage import FileBackend, FileKVStore, ObjectStore
+    from repro_torch.storage.inotify import Inotify
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-stores-")
+    row = {"phase": "storage", "root_fs": root, "inotify_available": Inotify.available(),
+           "card": card}
+    n = 400
+    wroot = os.path.join(root, "torn")
+    try:
+        # the three children start together (each imports torch)
+        blpop = spawn_child("blpop", os.path.join(root, "wake"))
+        race = spawn_child("race", os.path.join(root, "race-kv"), os.path.join(root, "race-obj"),
+                           str(n))
+        writer = spawn_child("writer", wroot)
+        # a cross-process blpop wake
+        check(blpop.stdout.readline().strip() == "ready", "the blpop child did not start")
+        time.sleep(0.5)  # let it park in blpop
+        kv = FileKVStore(os.path.join(root, "wake"), num_shards=1)
+        kv.rpush("wake", time.time(), worker="parent")
+        row["blpop"] = child_json(blpop, "the blpop child")
+        kv.close()
+        check(row["blpop"]["latency_s"] < 2.0, f"cross-process wake took {row['blpop']}")
+        # a put_if_absent race: exactly one process wins each key
+        kv = FileKVStore(os.path.join(root, "race-kv"), num_shards=1)
+        store = ObjectStore(backend=FileBackend(os.path.join(root, "race-obj")))
+        check(race.stdout.readline().strip() == "ready", "the race child did not start")
+        kv.rpush("go", 1, worker="parent")
+        mine = sum(store.put(f"race/{k}", "parent", if_absent=True) for k in range(n))
+        theirs = child_json(race, "the race child")["wins"]
+        owners = store.get_many([f"race/{k}" for k in range(n)], missing="error")
+        row["race"] = {"keys": n, "parent_wins": mine, "child_wins": theirs,
+                       "objects": len(store.list("race/"))}
+        check(mine + theirs == n and len(owners) == n
+              and sum(v == "parent" for v in owners.values()) == mine,
+              f"put_if_absent race: {row['race']}")
+        kv.close()
+        store.backend.close()
+        # torn tail: SIGKILL the writer, add half a frame, reopen
+        kv = FileKVStore(wroot, num_shards=1)
+        deadline = time.monotonic() + 60
+        while kv.llen("log") < 200:
+            check(writer.poll() is None and time.monotonic() < deadline,
+                  "the writer made no progress")
+            time.sleep(0.01)
+        os.kill(writer.pid, signal.SIGKILL)
+        writer.wait(timeout=30)
+        kv.close()
+        from repro_torch.storage.kv_store import encode_frame
+
+        frame = encode_frame([("s", "lost", "never committed")])
+        with open(os.path.join(wroot, "shard-0.log"), "ab") as f:
+            f.write(frame[:-3])
+        kv = FileKVStore(wroot, num_shards=1)
+        entries, (a, b) = kv.lrange("log"), kv.mget(["a", "b"])
+        kv.set("after", 1, worker="parent")  # truncates the torn tail
+        kv.close()
+        kv = FileKVStore(wroot, num_shards=1)
+        after = kv.get("after")
+        kv.close()
+        row["torn_tail"] = {"writer_rc": writer.returncode, "recovered": len(entries)}
+        check(entries == list(range(len(entries))) and a == b and after == 1,
+              f"after the SIGKILL: {len(entries)} entries, a={a}, b={b}, after={after}")
+        # the watcher of this filesystem, in this process
+        kv = FileKVStore(os.path.join(root, "wake"), num_shards=1)
+        peer = FileKVStore(os.path.join(root, "wake"), num_shards=1)
+        got = []
+        th = threading.Thread(target=lambda: got.append(kv.blpop("w2", timeout_s=20.0)))
+        th.start()
+        time.sleep(0.3)
+        peer.rpush("w2", "x", worker="parent")
+        th.join(timeout=20)
+        row["watcher"] = {"mode": kv._watcher.mode, "poll_wakeups": kv._watcher.poll_wakeups}
+        kv.close()
+        peer.close()
+        check(got == ["x"], "an in-process cross-handle wake was lost")
+    finally:
+        for proc in (blpop, race, writer):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    emit(row)
+
+
+class Worker:
+    """One ``python -m repro_torch.launch.serve`` worker over shared roots,
+    its stdout read by a thread."""
+
+    def __init__(self, kv_root, obj_root, engine_id):
+        self.id, self.t0 = engine_id, time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_WORKER_ARGS,
+             "--kv-root", kv_root, "--obj-root", obj_root, "--engine-id", engine_id,
+             "--idle-timeout", str(WORKER_IDLE_S)],
+            env=src_env(), text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        self.lines, self.ready_s, self.ready = [], None, threading.Event()
+        self._err = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        threading.Thread(target=lambda: self._err.extend(self.proc.stderr), daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            if line.startswith("READY"):
+                self.ready_s = time.perf_counter() - self.t0
+                self.ready.set()
+        self.ready.set()
+
+    def wait_ready(self):
+        self.ready.wait(CHILD_TIMEOUT_S)
+        check(self.ready_s is not None, f"worker {self.id} never printed READY: "
+                                        f"{''.join(self._err)[-2000:]}")
+
+    def finish(self):
+        """Wait for the idle exit; -> (stats line, kernel launches)."""
+        try:
+            rc = self.proc.wait(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            check(False, f"worker {self.id} did not exit")
+        self._reader.join(timeout=30)  # the last lines are read after the exit
+        check(rc == 0, f"worker {self.id} exited {rc}: {''.join(self._err)[-2000:]}")
+        stats = [ln for ln in self.lines if ln.startswith(f"{self.id}: served")]
+        launches = [ln for ln in self.lines if ln.startswith("launches ")]
+        check(len(stats) == 1 and len(launches) == 1, f"worker {self.id} printed {self.lines}")
+        return stats[0], json.loads(launches[0].split(" ", 1)[1])
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def gpu_processes(torch):
+    """The card's compute processes as ``[[pid, MiB], ...]``, from
+    ``torch.cuda.list_gpu_processes`` (NVML) and from ``nvidia-smi``, and the
+    device memory in use (``torch.cuda.mem_get_info``)."""
+    import re
+
+    listed = torch.cuda.list_gpu_processes(0)
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout
+    free, total = torch.cuda.mem_get_info(0)
+    return {
+        "list_gpu_processes": [[int(p), float(m)] for p, m in
+                               re.findall(r"process\s+(\d+) uses\s+([\d.]+) MB", listed)],
+        "nvidia_smi": [[int(p), float(m)] for p, m in re.findall(r"(\d+),\s*([\d.]+)", smi)],
+        "device_used_B": total - free,
+    }
+
+
+def serve_run(torch, port, root, ids, prompts, worker_ids, victim=None):
+    """Workers over fresh roots under ``root``: submit the requests once all
+    are READY; with a ``victim``, SIGKILL it once it has published a result
+    and still holds live leases.  -> a row of what happened."""
+    import os
+    import signal
+
+    rp = port["rp"]
+    from repro_torch.storage import FileBackend, FileKVStore, ObjectStore
+
+    kv_root, obj_root = os.path.join(root, "kv"), os.path.join(root, "obj")
+    kv = FileKVStore(kv_root, num_shards=2)
+    store = ObjectStore(backend=FileBackend(obj_root))
+    workers = {w: Worker(kv_root, obj_root, w) for w in worker_ids}
+    row = {"workers": list(worker_ids)}
+    try:
+        for w in workers.values():
+            w.wait_ready()
+        free, total = torch.cuda.mem_get_info(0)
+        row["device_used_B_ready"] = total - free
+        row["ready_s"] = {w.id: w.ready_s for w in workers.values()}
+        t0 = time.perf_counter()
+        for r, p in zip(ids, prompts):
+            rp.submit(store, kv, r, p)
+        done_keys = [rp.done_key(r) for r in ids]
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        if victim is not None:
+            seen = {}  # done key -> the engine that published it
+            while True:
+                check(time.monotonic() < deadline and workers[victim].proc.poll() is None,
+                      "the victim never held live leases after publishing a result")
+                new = sorted(store.exists_many(done_keys) - seen.keys())
+                seen.update({k: rec["engine"] for k, rec in store.get_many(new).items()})
+                if victim in seen.values() and len(seen) < len(ids):
+                    now, keys = time.time(), kv.scan(rp.LEASE_PREFIX)
+                    live = [k for k, rec in zip(keys, kv.mget(keys))
+                            if rec and rec["engine"] == victim and float(rec["expires"]) > now]
+                    if live:
+                        break
+                time.sleep(0.02)
+            row["gpu_processes"] = gpu_processes(torch)
+            row["worker_pids"] = {w.id: w.proc.pid for w in workers.values()}
+            before = {k: store.get_bytes(k) for k in store.exists_many(done_keys)}
+            os.kill(workers[victim].proc.pid, signal.SIGKILL)
+            t_kill = time.time()
+            workers[victim].proc.wait(timeout=30)
+            row.update(victim=victim, victim_rc=workers[victim].proc.returncode,
+                       victim_live_leases=len(live), done_at_kill=len(before),
+                       victim_results_at_kill=sum(store.get(k)["engine"] == victim for k in before))
+        while len(store.exists_many(done_keys)) < len(ids):
+            check(time.monotonic() < deadline, "not every request was served")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        survivors = [w for w in workers.values() if w.id != victim]
+        finished = {w.id: w.finish() for w in survivors}
+    finally:
+        for w in workers.values():
+            w.kill()
+    res = rp.get_results(store, ids, timeout_s=10)
+    row.update(wall_s=wall, stats={k: v[0] for k, v in finished.items()},
+               launches={k: v[1] for k, v in finished.items()},
+               done_objects=len(store.list("serve/done/")),
+               served_by={w: sum(res[r]["engine"] == w for r in ids) for w in worker_ids})
+    check(sorted(store.list("serve/done/")) == sorted(done_keys),
+          f"{row['done_objects']} result objects for {len(ids)} requests")
+    if victim is not None:
+        check(row["victim_rc"] == -signal.SIGKILL, f"the victim exited {row['victim_rc']}")
+        for k, blob in before.items():
+            check(store.get_bytes(k) == blob, f"{k}, published before the kill, changed")
+        row["kill_to_last_result_s"] = max(res[r]["t_done"] for r in ids) - t_kill
+    kv.close()
+    store.backend.close()
+    return row, {r: res[r]["tokens"] for r in ids}
+
+
+def phase_shared_roots(torch, np, port, card):
+    """6b: llama3-8b at full width and depth in stateless worker processes
+    over shared file roots: one worker alone serves the requests, then two
+    workers serve them again and one is SIGKILLed mid-stream; the survivor
+    finishes every request exactly once.  -> the survivor's launches."""
+    import gc
+    import re
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    print(f"[6b] torch.cuda.memory_allocated before the workers: {allocated} B",
+          file=sys.stderr, flush=True)
+    cfg = port["CONFIGS"]["llama3-8b"]
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(16, 301, size=SHARED_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    ids = [f"req-{i:02d}" for i in range(SHARED_REQUESTS)]
+    root = tempfile.mkdtemp(prefix="chip-smoke-roots-")
+    try:
+        solo, solo_tokens = serve_run(torch, port, root + "/solo", ids, prompts, ["solo"])
+        pair, tokens = serve_run(torch, port, root + "/pair", ids, prompts, ["e0", "e1"],
+                                 victim="e1")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    survivor = pair["stats"]["e0"]
+    tok_s = float(re.search(r"\(([\d.]+) tok/s", survivor).group(1))
+    gp, pids = pair["gpu_processes"], pair["worker_pids"]
+    weights = 16.06e9  # B: llama3-8b's bf16 weights, each worker's own copy
+    # NVML names the processes by the PIDs of its own namespace: where they
+    # are not the workers' PIDs, every process here is listed (as one PID),
+    # and what tells the workers apart is the count of entries holding the
+    # weights
+    listed = gp["list_gpu_processes"]
+    by_pid = all(any(p == pid and mib * 2**20 >= weights for p, mib in listed)
+                 for pid in pids.values())
+    holding = sum(mib * 2**20 >= weights for _, mib in listed)
+    row = {
+        "phase": "shared_roots", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "memory_allocated_before_B": allocated, "prompt_lens": lens,
+        "worker_args": SERVE_WORKER_ARGS, "cache_dtype": "float32",
+        "one_worker": solo, "two_workers": pair,
+        "survivor_tok_per_s": tok_s,
+        "tokens_equal_to_one_worker": sum(tokens[r] == solo_tokens[r] for r in ids),
+        "worker_pids_listed_with_weights": by_pid,
+        "listed_processes_holding_the_weights": holding, "card": card,
+    }
+    emit(row)
+    check(allocated < 1 << 30, f"the smoke's process holds {allocated} B before the workers")
+    check(pair["served_by"]["e1"] >= 1 and pair["done_objects"] == SHARED_REQUESTS,
+          f"served by {pair['served_by']}")
+    check(by_pid or holding >= 2,
+          f"the card does not list the two workers {pids} with their weights: {gp}")
+    check(gp["device_used_B"] - allocated >= 2 * weights,
+          f"{gp['device_used_B']} B in use on the card while two workers serve")
+    for name in ("decode_attention", "flash_attention"):
+        check(pair["launches"]["e0"][name] > 0 and solo["launches"]["solo"][name] > 0,
+              f"{name} never launched in a worker")
+    return {"one_worker": solo["launches"]["solo"], "survivor": pair["launches"]["e0"]}
+
+
+def elastic_parts(cfg):
+    """The optimizer (int8 moments) and the batch source (2 x ``RESUME_SEQ``
+    tokens a step) of phase 6c's runs."""
+    from functools import partial
+
+    from repro_torch import train
+    from repro_torch.data import DataConfig, synthetic_batch
+
+    dcfg = DataConfig(seq_len=RESUME_SEQ, global_batch=2, vocab_size=cfg.vocab_size)
+    opt = train.adamw(train.cosine_schedule(1e-3, warmup=1, total=8), quantize_moments=True)
+    return opt, partial(synthetic_batch, dcfg, cfg=cfg)
+
+
+def elastic_run(cfg, root, total_steps, device):
+    """``train_elastic`` of ``cfg`` with the fused CE, 2 steps a chunk, on
+    ``WrenExecutor(num_workers=1)`` over ``ObjectStore(backend=FileBackend(
+    root))``, on ``device``, to ``total_steps``; two versions kept.  The
+    last version's state stays in ``WARM_CACHE``.  -> the chunks' metrics."""
+    from repro_torch.core import WrenExecutor
+    from repro_torch.storage import FileBackend, ObjectStore
+    from repro_torch.train import elastic
+
+    opt, batch_fn = elastic_parts(cfg)
+    wex = WrenExecutor(store=ObjectStore(backend=FileBackend(root)), num_workers=1)
+    try:
+        tcfg = elastic.ElasticTrainConfig(run="resume", steps_per_chunk=2,
+                                          total_steps=total_steps, keep_checkpoints=2)
+        return elastic.train_elastic(wex, cfg, opt, tcfg, batch_fn, device=device)
+    finally:
+        wex.shutdown()
+        wex.store.backend.close()
+
+
+def phase_elastic_resume(torch, np, port, dev, card):
+    """6c: the elastic trainer resumed from a ``FileBackend`` root in a fresh
+    process.  Chunks 0 and 1 run here (versions 0-2 on disk); chunks 2 and 3
+    then run twice: here, from the state chunk 1 left in memory (the
+    uninterrupted run: the state never leaves the process), and in a child
+    process that starts from version 2 on disk.  The losses must be equal
+    bit for bit.  -> this process's kernel launches."""
+    import math
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from repro_torch.storage import FileBackend, ObjectStore
+
+    ck, el, wrappers = port["ckpt"], port["elastic"], port["wrappers"]
+    cfg = dataclasses.replace(port["CONFIGS"]["llama3-8b"], n_layers=RESUME_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    os_env = os.environ
+    prev_fused = os_env.get("REPRO_FUSED_CE")
+    os_env["REPRO_FUSED_CE"] = "1"
+    try:
+        # the room three versions take (two kept, one being written): bf16
+        # parameters and int8 moments with their fp32 block scales
+        opt, batch_fn = elastic_parts(cfg)
+        like, _ = ck.jax_state_skeleton(cfg, opt)
+        n = sum(math.prod(s.shape) for s in port["tree_flatten"](like)[0])
+        version_est = n * 2 + 2 * (n + 4 * math.ceil(n / 256))
+        disk = shutil.disk_usage(root)
+        print(f"[6c] disk_usage({root}): {disk}", file=sys.stderr, flush=True)
+        check(disk.free >= 3 * version_est,
+              f"phase 6c needs room for three checkpoint versions, {3 * version_est / 1e9:.1f} "
+              f"GB, and {root} has {disk.free / 1e9:.1f} GB free")
+        reset_counters(wrappers)
+        t0 = time.perf_counter()
+        first = elastic_run(cfg, root, 4, dev)
+        t_first = time.perf_counter() - t0
+        store = ObjectStore(backend=FileBackend(root))
+        keys = [k for k in store.list("ckpt/resume/v00000002/") if "/leaf/" in k]
+        version_bytes = sum(os.path.getsize(store.backend._path(k)) for k in keys)
+        # one version written and read back on its own
+        warm = el.WARM_CACHE[("resume", 2)]
+        t0 = time.perf_counter()
+        ck.save(store, "probe", 0, tuple(warm))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _, _ = ck.load(store, "probe", 0, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        del back
+        store.delete_prefix("ckpt/probe/")
+        # the uninterrupted run's chunks 2 and 3, from the warm state
+        tcfg = el.ElasticTrainConfig(run="resume", steps_per_chunk=2, total_steps=8)
+        chunk = el.make_chunk_fn(cfg, opt, ObjectStore(), tcfg, batch_fn, dev)
+        t0 = time.perf_counter()
+        cont = [chunk(2), chunk(3)]
+        t_cont = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        el.WARM_CACHE.clear()
+        del warm, chunk
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rest = child_json(spawn_child("elastic", root, "8", str(dev), pickle.dumps(cfg).hex()),
+                          "the resuming process")["losses"]
+        t_rest = time.perf_counter() - t0
+        latest = ck.latest_version(store, "resume")
+        store.backend.close()
+    finally:
+        el.WARM_CACHE.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        if prev_fused is None:
+            os_env.pop("REPRO_FUSED_CE", None)
+        else:
+            os_env["REPRO_FUSED_CE"] = prev_fused
+    head = [h["loss"] for h in first]
+    whole_l, split_l = head + [h["loss"] for h in cont], head + rest
+    emit({
+        "phase": "elastic_resume", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "batch": 2, "seq": RESUME_SEQ, "steps_per_chunk": 2,
+        "params": n, "disk_free_B": disk.free, "version_leaf_bytes": version_bytes,
+        "version_write_s": write_s, "version_read_s": read_s,
+        "first_two_chunks_s": t_first, "warm_two_chunks_s": t_cont, "resume_process_s": t_rest,
+        "warm_starts": [h["warm_start"] for h in cont],
+        "losses_uninterrupted": whole_l, "losses_resumed": split_l, "latest_version": latest,
+        "launches": launches, "card": card,
+    })
+    check(all(h["warm_start"] == 1.0 for h in cont), "the uninterrupted run reloaded its state")
+    check(len(whole_l) == 4 and split_l == whole_l,
+          f"resumed losses {split_l} differ from the uninterrupted run's {whole_l}")
+    check(latest == 4, f"the resumed run ended at v{latest}, expected v4")
+    check(launches["flash_attention"] > 0, "the elastic runs launched no flash kernel")
+    return launches
+
+
+def load_port():
+    """The port's modules and functions the phases use, by name."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import CONFIGS
     from repro_torch.kernels import _build
@@ -1560,7 +2097,7 @@ def main() -> int:
     from repro_torch.train import elastic, train_step
     from repro_torch.util import tree_flatten, tree_map, tree_unflatten
 
-    port = dict(
+    return dict(
         CONFIGS=CONFIGS, decode_step=decode_step, forward=forward, init_cache=init_cache,
         init_params=init_params, prefill=prefill, ContinuousEngine=ContinuousEngine,
         Engine=Engine, transformer=transformer,
@@ -1576,6 +2113,26 @@ def main() -> int:
         DataConfig=DataConfig, synthetic_batch=synthetic_batch, WrenExecutor=WrenExecutor,
         tree_unflatten=tree_unflatten,
     )
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "child":  # phases 6a and 6c
+        return child_main(sys.argv[2], sys.argv[3:])
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    port = load_port()
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import mamba2_ssd as smod
+    from repro_torch.kernels import mlstm as mmod
+
+    CONFIGS = port["CONFIGS"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1648,9 +2205,10 @@ def main() -> int:
     lap("5b elastic, launch.train")
     launches["llama3-8b-train-consistency"] = phase_train_consistency(torch, np, port, dev, card)
     lap("5c train consistency")
-    for arch in ("zamba2-1.2b", "xlstm-1.3b"):  # phases 5d, 5e
-        launches[f"{arch}-train"] = phase_train_step(torch, np, port, dev, card, CONFIGS[arch])
-        lap(f"5d/5e {arch} train")
+    xlstm_train = dataclasses.replace(CONFIGS["xlstm-1.3b"], n_layers=XLSTM_TRAIN_LAYERS)
+    for cfg in (CONFIGS["zamba2-1.2b"], xlstm_train):  # phases 5d, 5e
+        launches[f"{cfg.name}-train"] = phase_train_step(torch, np, port, dev, card, cfg)
+        lap(f"5d/5e {cfg.name} train")
     phase_launch_train(card, "xlstm-1.3b")
     lap("5e launch.train xlstm-1.3b")
     # phase 5f: one super block of 6 Mamba layers + the shared block + 1
@@ -1659,6 +2217,16 @@ def main() -> int:
         launches[f"{arch}-train-consistency"] = phase_train_consistency(
             torch, np, port, dev, card, arch, n)
         lap(f"5f {arch} train consistency")
+
+    # phase 6: the storage plane; the smoke's process holds no model from here
+    phase_storage(card)
+    lap("6a file stores across processes")
+    workers = phase_shared_roots(torch, np, port, card)
+    launches["llama3-8b-one-worker"] = workers["one_worker"]
+    launches["llama3-8b-shared-roots-survivor"] = workers["survivor"]
+    lap("6b two llama3-8b workers over shared roots")
+    launches["llama3-8b-elastic-resume"] = phase_elastic_resume(torch, np, port, dev, card)
+    lap("6c elastic resume from disk")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),

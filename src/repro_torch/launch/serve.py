@@ -1,8 +1,24 @@
 """Serving engine worker, PyTorch port: one continuous-batching engine over
 the request plane (port of `repro.launch.serve`).
 
-Self-contained demo (in-memory stores; submits its own requests and serves
-them), on the GPU by default:
+Each invocation is ONE stateless engine worker, the paper's scaling unit.
+Point any number of them at the same ``--kv-root``/``--obj-root`` (a shared
+filesystem) and they drain the ``serve/q/*`` request queues together:
+leases keep two engines off the same request, heartbeats keep live work
+fenced, and a worker that dies mid-stream is reaped by the survivors and
+its requests re-served (greedy decoding and per-request sampling seeds make
+the re-serve deterministic).  The roots hold the JAX package's on-disk
+format, so torch workers and JAX workers can drain one queue.
+
+Worker over a shared directory, on the GPU (start N of these; clients
+submit with ``repro_torch.serve.request_plane.submit`` against the same
+roots):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --kv-root /srv/kv --obj-root /srv/obj --engine-id e0 --idle-timeout 10
+
+Self-contained demo (no roots: in-memory stores; submits its own requests
+and serves them):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --demo-requests 8
@@ -22,14 +38,16 @@ its requests carry no audio frames (``Engine.generate`` with
 ``extras={"audio_frames": ...}`` serves whisper).
 
 The worker prints ``READY <engine-id>`` after warmup so orchestrators can
-wait for it, and a stats line on idle exit.  Weights are random, from
-seed 0.  Shared file stores (``--kv-root``/``--obj-root``) come with a
-later slice.
+wait for it before submitting, and on idle exit ``launches {...}``, each
+CUDA kernel's launches while it served (JSON; all 0 on the CPU, which runs
+the plain versions), then the stats line.  Weights are random, from
+seed 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -38,10 +56,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import CONFIGS
+from repro_torch.kernels import decode_attention, flash_attention, mamba2_ssd, mlstm
 from repro_torch.models import init_params
 from repro_torch.serve import ContinuousEngine, ServeConfig
 from repro_torch.serve import request_plane as rp
-from repro_torch.storage import KVStore, ObjectStore
+from repro_torch.storage import FileBackend, FileKVStore, KVStore, ObjectStore
+
+
+KERNELS = {
+    "decode_attention": decode_attention.decode_attention,
+    "flash_attention": flash_attention.flash_attention,
+    "ssd": mamba2_ssd.ssd,
+    "mlstm": mlstm.mlstm,
+}
 
 
 def build_engine(args) -> ContinuousEngine:
@@ -67,6 +94,8 @@ def build_engine(args) -> ContinuousEngine:
         engine.step_chunk()
     for k in engine.stats:
         engine.stats[k] = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
     return engine
 
 
@@ -76,8 +105,8 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--cache-dtype", default="float32", choices=["float32", "bfloat16"])
-    ap.add_argument("--kv-root", help="shared file KV directory (later slice)")
-    ap.add_argument("--obj-root", help="shared file object directory (later slice)")
+    ap.add_argument("--kv-root", help="shared FileKVStore directory (request plane)")
+    ap.add_argument("--obj-root", help="shared FileBackend directory (bodies/results)")
     ap.add_argument("--engine-id", default="engine-0")
     ap.add_argument("--idle-timeout", type=float, default=5.0,
                     help="exit after the queue stays empty this long (s)")
@@ -89,29 +118,37 @@ def main(argv=None) -> None:
     ap.add_argument("--queues", type=int, default=1, help="serve/q/ shard count")
     ap.add_argument("--lease-timeout", type=float, default=2.0)
     ap.add_argument("--demo-requests", type=int, default=0,
-                    help="submit this many synthetic requests first (in-memory stores)")
+                    help="submit this many synthetic requests first (demo mode; "
+                    "uses in-memory stores when no roots are given)")
     args = ap.parse_args(argv)
 
-    if args.kv_root or args.obj_root:
-        ap.error("--kv-root/--obj-root: the file-backed stores come with a later "
-                 "slice of the port; use --demo-requests N (in-memory stores)")
-    if not args.demo_requests:
-        ap.error("give --demo-requests N (the port has in-memory stores only)")
-    kv = KVStore(num_shards=2)
-    store = ObjectStore()
+    if bool(args.kv_root) != bool(args.obj_root):
+        ap.error("--kv-root and --obj-root must be given together")
+    if args.kv_root:
+        kv = FileKVStore(args.kv_root, num_shards=2)
+        store = ObjectStore(backend=FileBackend(args.obj_root))
+    else:
+        if not args.demo_requests:
+            ap.error("no shared roots: give --kv-root/--obj-root, or "
+                     "--demo-requests N for a self-contained in-memory demo")
+        kv = KVStore(num_shards=2)
+        store = ObjectStore()
 
     engine = build_engine(args)
     print(f"READY {args.engine_id}", flush=True)
 
-    rng = np.random.default_rng(0)
-    for i in range(args.demo_requests):
-        prompt = rng.integers(0, engine.cfg.vocab_size, size=int(rng.integers(4, 16))).tolist()
-        rp.submit(store, kv, f"req-{i:04d}", prompt, n_queues=args.queues)
-    print(f"submitted {args.demo_requests} requests", flush=True)
+    if args.demo_requests:
+        rng = np.random.default_rng(0)
+        for i in range(args.demo_requests):
+            prompt = rng.integers(0, engine.cfg.vocab_size, size=int(rng.integers(4, 16))).tolist()
+            rp.submit(store, kv, f"req-{i:04d}", prompt, n_queues=args.queues)
+        print(f"submitted {args.demo_requests} requests", flush=True)
 
     t0 = time.time()
     stats = engine.run(store, kv, engine_id=args.engine_id, idle_timeout_s=args.idle_timeout)
     dt = time.time() - t0
+    print("launches " + json.dumps({name: fn.launches for name, fn in KERNELS.items()}),
+          flush=True)
     print(
         f"{args.engine_id}: served {stats['served']} requests, "
         f"{stats['tokens_out']} tokens in {dt:.1f}s "

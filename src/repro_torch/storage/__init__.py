@@ -1,21 +1,34 @@
-"""Storage plane, in memory: object store (S3 semantics), KV store (Redis
-semantics), serialization and the paper-calibrated perf models.
+"""Storage plane: object store (S3 semantics), KV store (Redis semantics),
+serialization and the paper-calibrated perf models (copies of
+`repro.storage`, without the ``repro-kvd`` wire tier).
 
-Copies of the in-memory parts of `repro.storage`; the file-backed
-`FileBackend`/`FileKVStore` and the `repro-kvd` wire tier come with a later
-slice (see ROADMAP.md)."""
+Two substrates behind one API each: the in-memory ``KVStore`` and
+``InMemoryBackend`` for one process, and the file-backed ``FileKVStore``
+and ``FileBackend`` for any number of processes sharing a directory (the
+JAX package's on-disk format: a JAX engine and a torch engine can drain one
+queue over the same roots).
 
+Batched data-plane contract: N keys cost one amortized round-trip
+(``ObjectStore.get_many``/``put_many``, ``KVStore.mget``/``mset``/
+``rpush_many``/``eval_many``, charged once per shard touched on the KV); a
+batch fires one ``notify_put`` (object store) or one sequence bump per
+touched shard (KV), so waiters wake once per batch.  Every operation is
+recorded in a :class:`~repro_torch.storage.object_store.Ledger`."""
+
+from .file_kv import FileKVStore
 from .kv_store import DELETE, KVStore, kv_pure
-from .object_store import InMemoryBackend, Ledger, ObjectStore, OpRecord
+from .object_store import FileBackend, InMemoryBackend, Ledger, ObjectStore, OpRecord
 from .perf_model import PROFILES, REDIS_2017, S3_2017, StorageProfile
 from .serialization import dumps, loads
 
 __all__ = [
     "KVStore",
+    "FileKVStore",
     "DELETE",
     "kv_pure",
     "ObjectStore",
     "InMemoryBackend",
+    "FileBackend",
     "Ledger",
     "OpRecord",
     "StorageProfile",

@@ -1,36 +1,66 @@
-"""Redis-semantics low-latency KV store: the coordination plane.
+"""Redis-semantics low-latency KV store: the coordination plane (a copy of
+`repro.storage.kv_store`, so that the port imports nothing of the JAX
+package; the log framing below is byte-compatible with the JAX package's,
+so either package's file stores replay the other's logs).
 
-The in-memory `KVStore` of `repro.storage.kv_store`, copied so that the port
-imports nothing of the JAX package: every verb the serving request plane and
-the runtime (`repro_torch.core`: scheduler, jobs) call.  The append-only log
-framing, the file-log tier and the wire tier come with a later slice.
+The paper uses ElastiCache/Redis for (a) small synchronous put/gets (Fig 4),
+(b) shuffle intermediates when S3 request throughput is the bottleneck
+(Fig 5/6), and (c) parameter servers with server-side scripting for range
+updates / flexible consistency (§3.3).
 
-  * sharded keyspace (crc32 over N shards), one lock per shard;
-  * atomic single-key ops: get/set/setnx/incr;
-  * ``eval`` / ``eval_many`` -- server-side scripting (Redis EVAL): each
-    update runs atomically per key under its shard lock; an update may
-    return :data:`DELETE` to delete the key in the same step;
-  * batched verbs (``mget``, ``mset``, ``mdel``, ``rpush_many``,
-    ``eval_many``) group their keys by shard and are charged one amortized
-    round-trip per shard touched; each touched shard's sequence is bumped
-    once per batch;
-  * per-shard watch conditions: consumers snapshot ``shard_seq(key)``,
-    check, then block in ``wait_key`` (keyed wakes) or ``blpop``;
-    ``notify_key`` wakes a key's watchers without a write.
+Reproduced semantics:
+  * sharded keyspace (consistent hashing over N shards, each shard has its
+    own request-throughput budget — the Fig 5/6 bottleneck);
+  * atomic single-key ops: get/set/setnx/incr/cas/delete;
+  * ``eval`` — server-side scripting analogue: apply a Python callable to a
+    key's value *atomically under the shard lock* (Redis EVAL), used by the
+    parameter server for in-place range updates (HOGWILD!);
+  * lists (rpush/lrange) for queues, plus blocking ``blpop`` (Redis BLPOP).
 
-Each op is charged virtual wire time from a
-:class:`~repro_torch.storage.perf_model.StorageProfile` and recorded per
-shard.
+Data plane (batching + per-shard notification):
+  * **batched reads** — ``mget`` groups its keys by shard and serves each
+    shard's group in one locked pass, charged as one amortized round-trip
+    per *shard touched* (one request latency + summed transfer time) rather
+    than one per key.  The Cloudburst/numpywren lesson applied to the
+    coordination plane: parameter-server pulls and shuffle column reads
+    cost O(shards) requests, not O(keys).
+  * **batched writes** — ``mset`` (Redis MSET), pipelined ``rpush_many``,
+    and ``eval_many`` (pipelined EVAL) mirror ``mget`` on the write side:
+    keys are grouped by shard, each shard's group lands in one locked pass
+    charged as one amortized round-trip (request latency + summed
+    transfer), and each touched shard's sequence is bumped **exactly
+    once** — a batch of N writes wakes each shard's watchers once, not N
+    times.  Shuffle map-side fan-out, parameter-server pushes, and
+    scheduler batch-submits ride these; ``mdel`` closes the lifecycle with
+    the same per-shard accounting.
+  * **per-shard watch conditions** — every mutating op (``set``/``setnx``/
+    ``incr``/``cas``/``eval``/``rpush``/``delete``) bumps its shard's write
+    sequence and broadcasts on the shard's condition.  Consumers snapshot
+    ``shard_seq(key)``, check state, then block in ``wait_key`` until the
+    shard's sequence advances (snapshot-then-wait: an in-process write can
+    never be missed between the check and the wait).  ``blpop`` builds the
+    Redis blocking-pop on top.  Scheduler queue waits and parameter-server
+    pullers block here — per shard, woken only by writes that could matter
+    to them — instead of riding a global poll tick.
+  * wakeups from *this* class are in-process (it is an in-memory model);
+    :class:`~repro_torch.storage.file_kv.FileKVStore` extends the identical
+    contract across processes via per-shard seq files and a watch thread,
+    so multi-process drivers get event-driven ``blpop``/``wait_key`` too.
+
+Each op is charged virtual wire time and recorded per shard so benchmarks
+can detect shard saturation exactly like the paper's sort experiment.
 """
 
 from __future__ import annotations
 
+import pickle
+import struct
 import threading
 import time
 import zlib
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from .object_store import Ledger, OpRecord, _Endpoint
 from .perf_model import REDIS_2017, StorageProfile
@@ -131,6 +161,105 @@ def _sizeof(value: Any) -> int:
     return 64  # opaque
 
 
+# ---------------------------------------------------------------------------
+# Record framing for append-only logs (shared by FileKVStore's per-shard
+# logs and FileBackend's watch ledger).
+#
+# One *frame* is one commit: a length/CRC header followed by a pickled list
+# of state-delta records.  The header makes torn tails self-detecting — a
+# writer killed mid-append leaves either a short header, a short payload, or
+# a CRC mismatch, and replay stops at the last whole frame (the committed
+# prefix).  Records are state *deltas*, not operations, so replaying a log
+# over the snapshot it was appended after reconstructs the exact state:
+#
+#   ("s", key, value)   set key to value          (set/incr/cas/eval/mset …)
+#   ("d", key, None)    delete key                (delete/mdel/eval→DELETE)
+#   ("a", key, [v, …])  extend key's list         (rpush/rpush_many)
+#   ("p", key, n)       drop n items from the left of key's list (lpop/blpop)
+#
+# List ops get their own compact deltas because queues are the hottest keys:
+# an rpush frame carries only the pushed values, never the whole list.
+# ---------------------------------------------------------------------------
+
+_FRAME_HDR = struct.Struct("<II")  # (payload length, crc32(payload))
+
+# Wire-protocol buffer frames: bit 31 of the length field marks a
+# frame whose payload is RAW BYTES, not a pickle — ndarray/blob payloads
+# travel out-of-band from the pickled verb header so neither side copies
+# them through the codec.  The bit is free: payload lengths are capped at
+# MAX_FRAME_LEN (1 << 30) everywhere a frame is decoded, so a legitimate
+# length never sets it.  Shard logs never use buffer frames; the flag
+# lives here only because the wire protocol shares this header struct.
+BUF_FLAG = 1 << 31
+MAX_FRAME_LEN = 1 << 30  # the largest payload any frame decoder accepts
+
+# Log files open with a fixed header naming the *generation* — bumped by
+# every compaction, so a snapshot and the log it supersedes can never be
+# replayed together (see file_kv.py's compaction protocol).
+LOG_MAGIC = b"WKV1"
+_LOG_HDR = struct.Struct("<4sQ")  # (magic, generation)
+LOG_HEADER_SIZE = _LOG_HDR.size
+
+
+def encode_log_header(generation: int) -> bytes:
+    return _LOG_HDR.pack(LOG_MAGIC, generation)
+
+
+def decode_log_header(buf: bytes) -> Optional[int]:
+    """Generation from a log header, or None if short/corrupt."""
+    if len(buf) < _LOG_HDR.size:
+        return None
+    magic, gen = _LOG_HDR.unpack_from(buf)
+    if magic != LOG_MAGIC:
+        return None
+    return gen
+
+
+def encode_frame(records: List[Tuple[str, str, Any]]) -> bytes:
+    """Frame one commit's delta records: ``[len][crc32][pickle(records)]``."""
+    payload = pickle.dumps(records, protocol=pickle.HIGHEST_PROTOCOL)
+    return _FRAME_HDR.pack(len(payload), zlib.crc32(payload)) + payload
+
+
+def iter_frames(
+    buf: bytes, start: int = 0
+) -> Iterator[Tuple[List[Tuple[str, str, Any]], int]]:
+    """Yield ``(records, end_offset)`` for every whole frame in ``buf``.
+
+    Stops silently at the first torn frame (short header, short payload, or
+    CRC mismatch): everything before it is the committed prefix, everything
+    from it on is a crashed writer's garbage."""
+    off = start
+    n = len(buf)
+    while off + _FRAME_HDR.size <= n:
+        length, crc = _FRAME_HDR.unpack_from(buf, off)
+        end = off + _FRAME_HDR.size + length
+        if end > n:
+            return  # torn payload
+        payload = buf[off + _FRAME_HDR.size : end]
+        if zlib.crc32(payload) != crc:
+            return  # torn/corrupt frame
+        yield pickle.loads(payload), end
+        off = end
+
+
+def apply_record(state: Dict[str, Any], rec: Tuple[str, str, Any]) -> None:
+    """Apply one framed state-delta record to ``state`` (replay)."""
+    op, key, val = rec
+    if op == "s":
+        state[key] = val
+    elif op == "d":
+        state.pop(key, None)
+    elif op == "a":
+        state.setdefault(key, []).extend(val)
+    elif op == "p":
+        lst = state.get(key)
+        if lst:
+            del lst[:val]
+    else:  # pragma: no cover - forward-compat guard
+        raise ValueError(f"unknown log record op {op!r}")
+
+
 class KVStore(_Endpoint):
     """Sharded in-memory KV store with Redis-like atomic ops."""
 
@@ -223,6 +352,11 @@ class KVStore(_Endpoint):
                 return True
         return False
 
+    def foreign_wake_skips(self) -> int:
+        """How many shard wakes :meth:`wait_key` absorbed because the touch
+        named only other keys — the keyed-wake win the dataplane tests pin."""
+        return sum(sh.skipped_wakes for sh in self._shards)
+
     def notify_key(self, key: str) -> None:
         """Virtual touch: wake every watcher of ``key`` without writing
         (used by e.g. scheduler shutdown to unblock queue waiters)."""
@@ -314,6 +448,27 @@ class KVStore(_Endpoint):
             sh.touch((key,))
             return new
 
+    def cas(self, key: str, expect: Any, value: Any, *, worker: str = "-") -> bool:
+        sh = self._shard(key)
+        with sh.lock:
+            self._charge(sh, worker, "cas", key, _sizeof(value), write=True)
+            cur = sh.data.get(key, _TOMBSTONE)
+            matched = (cur is not _TOMBSTONE and cur == expect) or (
+                cur is _TOMBSTONE and expect is None
+            )
+            if matched:
+                sh.data[key] = value
+                sh.touch((key,))
+                return True
+            return False
+
+    def delete(self, key: str, *, worker: str = "-") -> None:
+        sh = self._shard(key)
+        with sh.lock:
+            sh.data.pop(key, None)
+            self._charge(sh, worker, "del", key, 0, write=True)
+            sh.touch((key,))
+
     def mdel(self, keys: List[str], *, worker: str = "-") -> int:
         """Batched delete: one amortized round-trip per shard touched (cf.
         :meth:`mget`).  Returns how many of the keys actually existed —
@@ -333,6 +488,12 @@ class KVStore(_Endpoint):
                 )
                 sh.touch(group)
         return removed
+
+    def exists(self, key: str, *, worker: str = "-") -> bool:
+        sh = self._shard(key)
+        with sh.lock:
+            self._charge(sh, worker, "exists", key, 0, write=False)
+            return key in sh.data
 
     def scan(self, prefix: str, *, worker: str = "-") -> List[str]:
         """All keys starting with ``prefix`` (Redis SCAN MATCH): one charged
@@ -466,6 +627,14 @@ class KVStore(_Endpoint):
                 sh.touch(group)
         return lengths
 
+    def lpop(self, key: str, *, worker: str = "-") -> Any:
+        sh = self._shard(key)
+        with sh.lock:
+            lst = sh.data.get(key)
+            value = lst.pop(0) if lst else None
+            self._charge(sh, worker, "lpop", key, _sizeof(value), write=True)
+            return value
+
     def lpop_n(self, key: str, max_n: int, *, worker: str = "-") -> List[Any]:
         """Pop up to ``max_n`` items off the left of ``key``'s list in ONE
         locked pass / one charged round-trip (Redis ``LPOP key count``).
@@ -516,3 +685,14 @@ class KVStore(_Endpoint):
             self._charge(sh, worker, "llen", key, 8, write=False)
             return len(sh.data.get(key, []))
 
+    # ---- stats ------------------------------------------------------------
+    def shard_stats(self) -> List[ShardStats]:
+        return [sh.stats for sh in self._shards]
+
+    def total_ops(self) -> int:
+        return sum(sh.stats.ops for sh in self._shards)
+
+    def hottest_shard_vtime(self) -> float:
+        """Virtual busy-time of the most loaded shard — the sort benchmark's
+        bottleneck signal (paper Fig 6: 'Redis I/O time increases by 42%')."""
+        return max((sh.stats.vtime_s for sh in self._shards), default=0.0)

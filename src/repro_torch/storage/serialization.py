@@ -36,6 +36,11 @@ _LEN = struct.Struct("<Q")
 BF16 = "bfloat16"  # the dtype name a bf16 leaf is written under
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """The numpy dtype name a tensor of ``dtype`` is written under."""
+    return BF16 if dtype == torch.bfloat16 else str(torch.empty((), dtype=dtype).numpy().dtype)
+
+
 def _array_leaves(value: Any):
     leaves, struct_ = tree_flatten(value)
     if leaves and all(isinstance(l, (np.ndarray, np.generic, torch.Tensor)) for l in leaves):

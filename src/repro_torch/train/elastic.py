@@ -23,6 +23,13 @@ module-level class holding the config, the optimizer, the store's handle
 module-level function or a ``functools.partial`` of one) and the device,
 and no tensor.
 
+The store may be a ``FileBackend`` root that other processes share: a
+fresh process calling ``train_elastic`` for the same run resumes at
+``latest_version`` and continues the same losses bit for bit.  It may also
+hold a run the JAX package began: the chunk passes its config and
+optimizer to `checkpoint.load`, which reads a JAX-written version into the
+port's layout.
+
 Deterministic mode on CUDA needs ``CUBLAS_WORKSPACE_CONFIG`` set before the
 process's first cuBLAS call; importing `repro_torch` sets it (see
 `repro_torch.__init__`).
@@ -99,7 +106,8 @@ class ChunkFn:
             state = cache.pop(key)
             warm = True
         else:
-            tree, _, _ = ckpt.load(self.store, tcfg.run, version, device=self.device)
+            tree, _, _ = ckpt.load(self.store, tcfg.run, version, device=self.device,
+                                   cfg=self.cfg, opt=self.opt)
             state = _as_state(tree)
             warm = False
         base_step = version * tcfg.steps_per_chunk

@@ -32,9 +32,23 @@ reduced train step on the card against the CPU (fp32, TF32 off) for
 llama3-8b, xlstm-1.3b and zamba2-1.2b (its reduced config widened to the
 SSD kernel's P = N = 64): loss and metrics 1e-5, parameters 1e-5 but for
 at most 1e-4 of the elements, all within lr.
+
+The storage plane on the card: two ``repro_torch.launch.serve`` workers
+(reduced llama3-8b, the default device) over shared file roots, one
+SIGKILLed while it holds live leases after publishing a result; the survivor
+serves every request exactly once and leaves the victim's results as they
+were; and a bf16 train state of CUDA tensors through a ``FileBackend``
+checkpoint, back bit for bit.
 """
 
 import dataclasses
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -774,3 +788,103 @@ def test_recurrent_train_step_cuda_matches_cpu(cuda, monkeypatch, arch):
                        zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0])])
     assert int((diffs > 1e-5).sum()) <= 1e-4 * diffs.numel()
     assert float(diffs.max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the storage plane on the card
+# ---------------------------------------------------------------------------
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+
+def _worker(kv_root, obj_root, engine_id):
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "llama3-8b", "--reduced",
+           "--kv-root", kv_root, "--obj-root", obj_root, "--engine-id", engine_id,
+           "--batch", "4", "--max-len", "128", "--new-tokens", "48", "--decode-chunk", "1",
+           "--lease-timeout", "1", "--idle-timeout", "3"]
+    env = dict(os.environ, PYTHONPATH=_SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("READY"):
+                ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, lines, ready, reader
+
+
+@pytest.mark.cuda
+def test_two_card_workers_survive_a_sigkill(cuda, tmp_path):
+    from repro_torch.serve import request_plane as rp
+    from repro_torch.storage import FileBackend, FileKVStore, ObjectStore
+
+    kv_root, obj_root = str(tmp_path / "kv"), str(tmp_path / "obj")
+    kv, store = FileKVStore(kv_root, num_shards=2), ObjectStore(backend=FileBackend(obj_root))
+    workers = {name: _worker(kv_root, obj_root, name) for name in ("victim", "survivor")}
+    try:
+        for name, (proc, lines, ready, _) in workers.items():
+            assert ready.wait(120), f"{name} never printed READY: {''.join(lines)[-3000:]}"
+        cfg = CONFIGS["llama3-8b"].reduced()
+        rng = np.random.default_rng(0)
+        ids = [f"g{i}" for i in range(32)]
+        for r in ids:
+            rp.submit(store, kv, r, rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, 64))).tolist())
+        victim = workers["victim"][0]
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            now, keys = time.time(), kv.scan(rp.LEASE_PREFIX)
+            live = [k for k, rec in zip(keys, kv.mget(keys))
+                    if rec and rec["engine"] == "victim" and float(rec["expires"]) > now]
+            done = store.get_many(sorted(store.exists_many([rp.done_key(r) for r in ids])))
+            if live and any(rec["engine"] == "victim" for rec in done.values()) and len(done) < len(ids):
+                break
+            time.sleep(0.01)
+        else:
+            pytest.fail("the victim never held live leases after publishing a result")
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.wait(timeout=30)
+        before = {k: store.get(k) for k in store.exists_many([rp.done_key(r) for r in ids])}
+        survivor, lines, _, reader = workers["survivor"]
+        assert survivor.wait(timeout=300) == 0, "".join(lines)[-3000:]
+        reader.join(timeout=30)  # the last lines are read after the exit
+    finally:
+        for proc, _, _, _ in workers.values():
+            if proc.poll() is None:
+                proc.kill()
+    assert victim.returncode == -signal.SIGKILL
+    out = "".join(workers["survivor"][1])
+    assert "survivor: served" in out, out[-3000:]
+    launches = json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith("launches ")).split(" ", 1)[1])
+    assert launches["decode_attention"] > 0 and launches["flash_attention"] > 0, out[-3000:]
+    assert sorted(store.list("serve/done/")) == sorted(rp.done_key(r) for r in ids)
+    res = rp.get_results(store, ids, timeout_s=10)
+    assert all(len(res[r]["tokens"]) == 48 for r in ids), {r: len(res[r]["tokens"]) for r in ids}
+    for k, rec in before.items():  # the victim's published results stand
+        assert store.get(k) == rec
+    assert any(rec["engine"] == "victim" for rec in res.values())
+    assert any(rec["engine"] == "survivor" for rec in res.values())
+    kv.close()
+    store.backend.close()
+
+
+@pytest.mark.cuda
+def test_bf16_cuda_checkpoint_round_trips_through_a_file_backend(cuda, tmp_path):
+    from repro_torch.storage import FileBackend, ObjectStore
+    from repro_torch.train import checkpoint as ck
+
+    cfg = dataclasses.replace(CONFIGS["llama3-8b"].reduced(), param_dtype="bfloat16")
+    opt = topt.adamw(1e-3, quantize_moments=True)
+    state = tts.init_train_state(cfg, opt, torch.Generator(device=cuda).manual_seed(0), cuda)
+    assert ck.save(ObjectStore(backend=FileBackend(str(tmp_path))), "c", 0, tuple(state))
+    loaded, _, _ = ck.load(ObjectStore(backend=FileBackend(str(tmp_path))), "c", 0, device=cuda)
+    a, b = tree_flatten(tuple(state))[0], tree_flatten(loaded)[0]
+    assert len(a) == len(b) and any(x.dtype == torch.bfloat16 for x in a)
+    for x, y in zip(a, b):
+        assert y.device.type == "cuda" and x.dtype == y.dtype
+        assert torch.equal(x.reshape(y.shape), y)  # a 0-d leaf comes back as (1,)

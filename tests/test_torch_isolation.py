@@ -2,8 +2,8 @@
 chip_smoke.py imports jax, the JAX package (`repro`) or cloudpickle (the
 card's machine has none; the port's runtime ships callables with the
 standard pickle), not even inside a function body, and importing the
-port's entry points, its runtime, data pipeline and trainer loads none of
-them."""
+port's entry points, its runtime, data pipeline, trainer and storage plane
+(the file stores included) loads none of them."""
 
 import ast
 import os
@@ -48,6 +48,7 @@ def test_port_entry_points_load_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.serve, repro_torch.launch.serve, repro_torch.kernels.ops\n"
         "import repro_torch.launch.train, repro_torch.train, repro_torch.core, repro_torch.data\n"
+        "import repro_torch.storage, repro_torch.storage.file_kv, repro_torch.storage.inotify\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
