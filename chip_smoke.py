@@ -25,7 +25,10 @@ script exits non-zero:
    and 5e (flash MHA 32 x 64 and the SSD at 2 x 1024, the mLSTM at 4 x 512
    and at 2 x 1024, bf16) also the gradients through ``PlainBackwardFn``
    (``ops`` under autograd), which must equal autograd of the plain version
-   bit for bit, and the plain backward's device time;
+   bit for bit, and the plain backward's device time; the SSD also at every
+   other (P, N) its kernels take (``WIDTHS``: the reduced configs' 16 x 16,
+   the JAX kernel tests' 16 x 8, 32 x 16 and 8 x 4, Mamba2's 64 x 128), in
+   bf16 and fp32, with the final state, and in bf16 over 9 chunks;
 3. serve: llama3-8b at full width (32 layers, random weights from a seed)
    behind ``ContinuousEngine`` over the in-memory request plane: 8 requests
    arriving 150 ms apart, 4 slots, 32 new tokens each; every request
@@ -119,7 +122,8 @@ script exits non-zero:
    cut to 4 x 512 tokens (``TRAIN_SHAPE``: the sLSTM loop's time); the
    device ms of the plain mLSTM backward and the sLSTM blocks' share of
    each step on the host clock; then ``python -m repro_torch.launch.train
-   --arch xlstm-1.3b --reduced`` on the card;
+   --arch xlstm-1.3b --reduced`` and ``--arch zamba2-1.2b --reduced`` (the
+   reduced hybrid, P = N = 16) on the card;
 5f. train consistency as in 5c for zamba2 width at 7 layers (one super
    block of 6 Mamba layers with the shared block, one tail layer) and
    xlstm width at 8 (7 mLSTM + 1 sLSTM), the fp32 kernels launched as the
@@ -140,8 +144,11 @@ script exits non-zero:
    idle; each worker's time to READY, the kill-to-last-result time, the
    survivor's tokens/s, both worker PIDs among the card's processes with
    their weights' memory, how many requests' tokens equal the one-worker
-   run's (bf16 GEMMs at other batch compositions may break near-ties, so
-   that count is reported, not required); each worker's kernel launches
+   run's, and each request's prefill group in both runs (the workers'
+   ``prefill [...]`` lines): a bf16 prefill's bits depend on how many
+   rows its group has (the GEMMs' M; ``tools/prefill_groups.py``), so the
+   tokens must be equal for every request prefilled in the same group in
+   both runs, and the others are counted; each worker's kernel launches
    (its ``launches`` line);
 6c. elastic resume: llama3-8b width cut to 2 layers (bf16, int8 moments, 2
    x 512 tokens, 2 steps a chunk): 4 chunks uninterrupted (in-memory
@@ -149,7 +156,20 @@ script exits non-zero:
    fresh process over the same root, whose losses must equal the
    uninterrupted run's bit for bit; the disk's room first (three versions'
    worth or the phase fails), the bytes of a version and the seconds to
-   write and read one.
+   write and read one;
+7. BSP on the port's runtime over file roots (``FileBackend`` and a
+   4-shard ``FileKVStore`` in a temp dir), host only (no kernel runs), in
+   at most ``BSP_BUDGET_S`` = 120 s: 7a word count over ``make_documents``
+   in 333 partitions (about 50 MB of text), 8 workers, equal to an
+   in-process ``Counter``; 7b terasort of 10^6 100-byte records in 20
+   objects -> 20 partitions, intermediates on the KV: sorted, 400
+   intermediate objects, none left after the merge; 7c a sort driver
+   process SIGKILLed between partition and merge, adopted by a fresh
+   process with ``adopt_job`` (only the merge tasks run; every record
+   written once, none lost); 7d HOGWILD! on the KV store as
+   ``examples/hogwild_ps.py`` runs it (8 data shards; no bound, a
+   staleness bound of 4, int8 compression): the loss falls; each part's
+   wall time on the host clock.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving and training phase, error and
@@ -385,13 +405,12 @@ def flash_case(torch, F, fmod, flush, dev, name, B, Sq, Sk, K, G, D, dt,
 
 
 def ssd_case(torch, F, smod, flush, dev, name, B, S, H, G, dt, with_d=True,
-             return_state=True, chunk=128, ops=None):
+             return_state=True, chunk=128, ops=None, P=64, N=64):
     """x, B and C are views of one (B, S, conv_dim) buffer, as the Mamba2
     layer hands them over (the conv output, row stride conv_dim).  With
     ``ops`` (the dispatch module: a training shape, no state) also
     `grad_check` over the buffer, dt, A and D."""
     g = torch.Generator(device=dev).manual_seed(B * S + H + G)
-    P = N = 64
     d_in, gn = H * P, G * N
     xbc = torch.randn((B, S, d_in + 2 * gn), generator=g, device=dev).to(getattr(torch, dt))
     x = xbc[..., :d_in].reshape(B, S, H, P)
@@ -623,6 +642,14 @@ def phase_kernels(torch, dmod, fmod, smod, ops, dev):
     m("g1-300-bf16", 1, 300, 64, 1, "bfloat16")
     m("chunk64-300-bf16", 2, 300, 64, 2, "bfloat16", chunk=64)
     m("train-2x1024", 2, 1024, 64, 2, "bfloat16", return_state=False, ops=ops)
+    # every other (P, N) the kernels take (smod.WIDTHS): the reduced
+    # configs' (16, 16), the JAX kernel tests' (16, 8), (32, 16), (8, 4) and
+    # Mamba2's published N = 128, at 16 heads: one serving prompt with its
+    # final state in both dtypes, and 9 chunks in bf16 (three launches)
+    for P, N in smod.WIDTHS[1:]:
+        for dt in ("bfloat16", "float32"):
+            m(f"p{P}n{N}-300-{dt}", 1, 300, 16, 2, dt, P=P, N=N)
+        m(f"p{P}n{N}-2x1100-bfloat16", 2, 1100, 16, 2, "bfloat16", return_state=False, P=P, N=N)
     for G in (4, 8):
         d(f"g{G}-bf16", 8, S, 8, G, 128, clen8, "bfloat16", "bfloat16")
         d(f"g{G}-bf16q-f32cache", 8, S, 8, G, 128, clen8, "bfloat16", "float32")
@@ -1567,6 +1594,237 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
 
 
 # ---------------------------------------------------------------------------
+# phase 7: BSP, MapReduce, terasort and the parameter server (host only)
+# ---------------------------------------------------------------------------
+
+WC_DOCS, WC_LINES = 333, 3300  # 7a: the paper's 333 partitions, about 50 MB of text
+WC_WORKERS, WC_REDUCERS = 8, 8
+SORT_RECORDS, SORT_FILES = 10 ** 6, 20  # 7b: 100 MB of 100-byte records -> 20 partitions
+ADOPT_RECORDS, ADOPT_FILES = 10 ** 5, 10  # 7c: the SIGKILLed driver's job
+KV_SHARDS = 4
+PS_DIM, PS_SHARDS, PS_ROWS, PS_STEPS = 64, 8, 128, 60  # 7d: as examples/hogwild_ps.py
+BSP_BUDGET_S = 120  # phase 7's wall time, all four parts
+
+
+def bsp_stores(root, workers=WC_WORKERS, lease_s=None):
+    """A port ``WrenExecutor`` over file roots under ``root`` (FileBackend +
+    a ``KV_SHARDS``-shard FileKVStore, no fsync: phases 6a and 6c hold the
+    stores to their durability)."""
+    import os
+
+    from repro_torch.core import SchedulerConfig, WrenExecutor
+    from repro_torch.storage import FileBackend, FileKVStore, ObjectStore
+
+    kv = FileKVStore(os.path.join(root, "kv"), num_shards=KV_SHARDS, fsync="never")
+    store = ObjectStore(backend=FileBackend(os.path.join(root, "obj"), fsync="never"))
+    cfg = SchedulerConfig(driver_lease_timeout_s=lease_s) if lease_s else None
+    return kv, store, WrenExecutor(store=store, kv=kv, num_workers=workers,
+                                   scheduler_config=cfg)
+
+
+def sort_inputs(store, n_records, n_files, seed=0):
+    """``n_records`` 100-byte records (``make_sort_records``) in ``n_files``
+    objects -> their keys."""
+    from repro_torch.storage import shuffle as shf
+
+    per = n_records // n_files
+    keys = [f"sortin/part{i:03d}" for i in range(n_files)]
+    store.put_many({k: shf.make_sort_records(per, seed=seed + i) for i, k in enumerate(keys)})
+    return keys
+
+
+def _ps_loss(w, shards):
+    import numpy as np
+
+    return float(np.mean([np.mean((X @ w - y) ** 2) for X, y in shards]))
+
+
+def ps_grad(w, shard):
+    """7d's least-squares gradient (module level: the port pickles it by
+    reference)."""
+    X, y = shard
+    return 2.0 * X.T @ (X @ w - y) / len(y)
+
+
+def phase_bsp(card):
+    """7: the paper's higher-level models on the port's runtime over file
+    roots, host only (no kernel runs): word count, terasort, a SIGKILLed
+    sort driver adopted by a fresh process, HOGWILD! on the KV store."""
+    import os
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch.core import ParameterServer, PSConfig, WrenExecutor, hogwild_sgd
+    from repro_torch.core import terasort, verify_sorted, word_count
+    from repro_torch.data import make_documents
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-bsp-")
+    t_phase = time.perf_counter()
+    try:
+        # 7a: word count
+        t0 = time.perf_counter()
+        docs = make_documents(WC_DOCS, WC_LINES, seed=0)
+        text_B = sum(len(line) + 1 for d in docs for line in d)
+        truth = Counter(w for d in docs for line in d for w in line.split())
+        setup_s = time.perf_counter() - t0
+        kv, store, wex = bsp_stores(os.path.join(root, "wc"))
+        try:
+            ops0 = len(store.ledger.records()) + len(kv.ledger.records())
+            t0 = time.perf_counter()
+            wc = word_count(wex, docs, num_reducers=WC_REDUCERS)
+            wall = time.perf_counter() - t0
+            requests = len(store.ledger.records()) + len(kv.ledger.records()) - ops0
+        finally:
+            wex.shutdown()
+            kv.close()
+        words = sum(truth.values())
+        emit({"phase": "bsp_word_count", "docs": WC_DOCS, "lines_per_doc": WC_LINES,
+              "text_B": text_B, "words": words, "workers": WC_WORKERS,
+              "reducers": WC_REDUCERS, "setup_s": setup_s, "wall_s": wall,
+              "modelled_requests": requests, "words_per_s": words / wall,
+              "clock": "host", "card": card})
+        check(wc == dict(truth), "word count differs from an in-process Counter")
+
+        # 7b: terasort, intermediates on the KV_SHARDS-shard KV
+        kv, store, wex = bsp_stores(os.path.join(root, "sort"))
+        try:
+            t0 = time.perf_counter()
+            keys = sort_inputs(store, SORT_RECORDS, SORT_FILES)
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rep = terasort(wex, keys, "sorted", SORT_FILES, intermediate=kv)
+            wall = time.perf_counter() - t0
+            ok = verify_sorted(store, "sorted")
+            left = kv.scan("shuffle/")
+            n_out = sum(len(store.get(k)) for k in store.list("sorted"))
+        finally:
+            wex.shutdown()
+            kv.close()
+        emit({"phase": "bsp_terasort", "records": SORT_RECORDS, "input_objects": SORT_FILES,
+              "partitions": SORT_FILES, "kv_shards": KV_SHARDS, "setup_s": setup_s,
+              "wall_s": wall, "MB_per_s": SORT_RECORDS * 100 / 1e6 / wall,
+              "n_records": rep.n_records, "n_intermediate_objects": rep.n_intermediate_objects,
+              "hottest_shard_vtime_s": rep.hottest_shard_vtime, "sorted": ok,
+              "shuffle_keys_left": len(left), "clock": "host", "card": card})
+        check(ok and rep.n_records == n_out == SORT_RECORDS, "terasort: not sorted, or "
+              f"{rep.n_records} / {n_out} records of {SORT_RECORDS}")
+        check(rep.n_intermediate_objects == SORT_FILES * SORT_FILES,
+              f"{rep.n_intermediate_objects} intermediate objects")
+        check(not left, f"{len(left)} shuffle intermediates left after the merge")
+
+        # 7c: a sort driver SIGKILLed between partition and merge, adopted by
+        # a fresh process
+        t0 = time.perf_counter()
+        aroot = os.path.join(root, "adopt")
+        drv = spawn_child("sort-driver", aroot)
+        try:
+            drv.wait(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            drv.kill()
+            check(False, "the sort driver never reached its kill barrier")
+        check(drv.returncode == -9, f"the sort driver exited {drv.returncode}: "
+                                    f"{drv.stderr.read()[-2000:]}")
+        adopted = child_json(spawn_child("sort-adopt", aroot), "the adopting process")
+        adopted.update(phase="bsp_adopt", wall_s=time.perf_counter() - t0, clock="host",
+                       card=card)
+        emit(adopted)
+        check(adopted["sorted"] and adopted["records_equal_inputs"]
+              and adopted["n_records"] == ADOPT_RECORDS and adopted["merge_tasks"] == ADOPT_FILES
+              and adopted["shuffle_keys_left"] == 0, f"adoption: {adopted}")
+
+        # 7d: HOGWILD! on the KV store, as examples/hogwild_ps.py runs it
+        rng = np.random.default_rng(0)
+        w_true = rng.normal(size=PS_DIM)
+        shards = []
+        for _ in range(PS_SHARDS):
+            X = rng.normal(size=(PS_ROWS, PS_DIM))
+            shards.append((X, X @ w_true + 0.01 * rng.normal(size=PS_ROWS)))
+        for label, cfg in (("hogwild", PSConfig(num_blocks=8)),
+                           ("staleness<=4", PSConfig(num_blocks=8, max_staleness=4)),
+                           ("int8", PSConfig(num_blocks=8, compress_int8=True))):
+            with WrenExecutor(num_workers=6) as wex:
+                server = ParameterServer(wex.kv, np.zeros(PS_DIM), cfg)
+                wex.kv.ledger.clear()
+                t0 = time.perf_counter()
+                w = hogwild_sgd(wex, server, ps_grad, shards, steps_per_worker=PS_STEPS, lr=0.01)
+                wall = time.perf_counter() - t0
+                applied = sum(int(v) for v in wex.kv.mget(
+                    [server._vkey(b) for b in range(cfg.num_blocks)]))
+                recs = [r for r in wex.kv.ledger.records() if r.worker.startswith("psw")]
+                # a straggler's speculative copy runs its steps too (HOGWILD!
+                # takes its pushes), so count the attempts that ran
+                attempts = sum(st.tasks_ok + st.tasks_superseded
+                               for st in wex.pool.stats().values())
+            loss0, loss1 = _ps_loss(np.zeros(PS_DIM), shards), _ps_loss(w, shards)
+            row = {"phase": "bsp_hogwild", "config": label, "shards": PS_SHARDS,
+                   "steps_per_worker": PS_STEPS, "wall_s": wall, "loss_start": loss0,
+                   "loss_end": loss1, "task_attempts": attempts, "pushes": attempts * PS_STEPS,
+                   "blocks_applied": applied,
+                   "blocks_rejected": attempts * PS_STEPS * cfg.num_blocks - applied,
+                   "kv_requests": len(recs), "kv_bytes": sum(r.nbytes for r in recs),
+                   "rel_err": float(np.linalg.norm(w - w_true) / np.linalg.norm(w_true)),
+                   "clock": "host", "card": card}
+            emit(row)
+            check(loss1 < 0.1 * loss0, f"HOGWILD! ({label}): the loss went {loss0} -> {loss1}")
+            check(attempts >= PS_SHARDS and row["blocks_rejected"] >= 0
+                  and (row["blocks_rejected"] == 0 or cfg.max_staleness is not None),
+                  f"HOGWILD! ({label}): {attempts} task attempts, {applied} blocks applied")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "bsp", "wall_s": wall, "budget_s": BSP_BUDGET_S, "clock": "host",
+          "card": card})
+    check(wall <= BSP_BUDGET_S, f"phase 7 took {wall:.1f} s of its {BSP_BUDGET_S} s")
+
+
+
+def bsp_child(role, root) -> None:
+    """7c's two processes: ``sort-driver`` submits a terasort and SIGKILLs
+    itself the instant the partition barrier commits; ``sort-adopt``
+    adopts the job in a fresh process and prints what it finds."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from repro_torch.core import adopt_job, bsp, verify_sorted
+
+    kv, store, wex = bsp_stores(root, workers=4, lease_s=1.0)
+    if role == "sort-driver":
+        orig = bsp._stage_barrier
+
+        def killing_barrier(wex_, job, idx, plan, outputs, **kw):
+            out = orig(wex_, job, idx, plan, outputs, **kw)
+            if idx == 1:  # the partition stage's barrier
+                os.kill(os.getpid(), signal.SIGKILL)
+            return out
+
+        bsp._stage_barrier = killing_barrier
+        keys = sort_inputs(store, ADOPT_RECORDS, ADOPT_FILES, seed=100)
+        bsp.terasort(wex, keys, "sorted", ADOPT_FILES, intermediate=kv, job_id="smoke-sort")
+        raise SystemExit("the sort driver survived its kill barrier")
+    submits = []
+    orig_submit = wex.scheduler.submit_many
+    wex.scheduler.submit_many = lambda tasks: submits.append(len(tasks)) or orig_submit(tasks)
+    t0 = time.perf_counter()
+    rep = adopt_job(wex, "smoke-sort", wait_timeout_s=60.0, timeout_s=CHILD_TIMEOUT_S)
+    adopt_s = time.perf_counter() - t0
+    outs = np.concatenate([store.get(k) for k in store.list("sorted")])
+    ins = np.concatenate([store.get(k) for k in store.list("sortin/")])
+    row = {"n_records": rep.n_records, "merge_tasks": sum(submits), "adopt_s": adopt_s,
+           "sorted": verify_sorted(store, "sorted"), "output_records": len(outs),
+           "records_equal_inputs": sorted(map(bytes, outs)) == sorted(map(bytes, ins)),
+           "shuffle_keys_left": len(kv.scan("shuffle/")),
+           "manifest_keys_left": len(kv.scan("sched/job/smoke-sort/"))}
+    wex.shutdown()
+    kv.close()
+    print(json.dumps(row), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the storage plane (file stores, stateless workers over shared roots)
 # ---------------------------------------------------------------------------
 
@@ -1607,7 +1865,7 @@ def child_json(proc, what):
 
 
 def child_main(role, args) -> int:
-    """The child processes of phases 6a and 6c."""
+    """The child processes of phases 6a, 6c and 7c."""
     import os
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -1635,6 +1893,8 @@ def child_main(role, args) -> int:
             kv.rpush("log", i, worker="w")
             kv.mset({"a": i, "b": i}, worker="w")
             i += 1
+    elif role in ("sort-driver", "sort-adopt"):  # 7c
+        bsp_child(role, args[0])
     elif role == "elastic":  # 6c: resume the run of the pickled config from the root
         import pickle
 
@@ -1753,6 +2013,7 @@ class Worker:
              "--idle-timeout", str(WORKER_IDLE_S)],
             env=src_env(), text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         self.lines, self.ready_s, self.ready = [], None, threading.Event()
+        self.groups = []  # each prefill group's request ids, as printed (a victim's too)
         self._err = []
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
@@ -1761,6 +2022,8 @@ class Worker:
     def _read(self):
         for line in self.proc.stdout:
             self.lines.append(line.rstrip("\n"))
+            if line.startswith("prefill "):
+                self.groups.append(json.loads(line.split(" ", 1)[1]))
             if line.startswith("READY"):
                 self.ready_s = time.perf_counter() - self.t0
                 self.ready.set()
@@ -1869,6 +2132,10 @@ def serve_run(torch, port, root, ids, prompts, worker_ids, victim=None):
         for w in workers.values():
             w.kill()
     res = rp.get_results(store, ids, timeout_s=10)
+    # each request's prefill group in the worker that published its result
+    # (the last group that held it there)
+    groups = {r: next(g for g in reversed(workers[res[r]["engine"]].groups) if r in g)
+              for r in ids}
     row.update(wall_s=wall, stats={k: v[0] for k, v in finished.items()},
                launches={k: v[1] for k, v in finished.items()},
                done_objects=len(store.list("serve/done/")),
@@ -1882,7 +2149,7 @@ def serve_run(torch, port, root, ids, prompts, worker_ids, victim=None):
         row["kill_to_last_result_s"] = max(res[r]["t_done"] for r in ids) - t_kill
     kv.close()
     store.backend.close()
-    return row, {r: res[r]["tokens"] for r in ids}
+    return row, {r: res[r]["tokens"] for r in ids}, groups
 
 
 def phase_shared_roots(torch, np, port, card):
@@ -1907,14 +2174,16 @@ def phase_shared_roots(torch, np, port, card):
     ids = [f"req-{i:02d}" for i in range(SHARED_REQUESTS)]
     root = tempfile.mkdtemp(prefix="chip-smoke-roots-")
     try:
-        solo, solo_tokens = serve_run(torch, port, root + "/solo", ids, prompts, ["solo"])
-        pair, tokens = serve_run(torch, port, root + "/pair", ids, prompts, ["e0", "e1"],
-                                 victim="e1")
+        solo, solo_tokens, solo_groups = serve_run(torch, port, root + "/solo", ids, prompts,
+                                                   ["solo"])
+        pair, tokens, groups = serve_run(torch, port, root + "/pair", ids, prompts,
+                                         ["e0", "e1"], victim="e1")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     survivor = pair["stats"]["e0"]
     tok_s = float(re.search(r"\(([\d.]+) tok/s", survivor).group(1))
     gp, pids = pair["gpu_processes"], pair["worker_pids"]
+    same_group = [r for r in ids if groups[r] == solo_groups[r]]
     weights = 16.06e9  # B: llama3-8b's bf16 weights, each worker's own copy
     # NVML names the processes by the PIDs of its own namespace: where they
     # are not the workers' PIDs, every process here is listed (as one PID),
@@ -1931,11 +2200,21 @@ def phase_shared_roots(torch, np, port, card):
         "one_worker": solo, "two_workers": pair,
         "survivor_tok_per_s": tok_s,
         "tokens_equal_to_one_worker": sum(tokens[r] == solo_tokens[r] for r in ids),
+        "prefill_group_sizes": {"one_worker": [len(solo_groups[r]) for r in ids],
+                                "two_workers": [len(groups[r]) for r in ids]},
+        "same_prefill_group": same_group,
+        "tokens_equal_where_group_same": sum(tokens[r] == solo_tokens[r] for r in same_group),
         "worker_pids_listed_with_weights": by_pid,
         "listed_processes_holding_the_weights": holding, "card": card,
     }
     emit(row)
     check(allocated < 1 << 30, f"the smoke's process holds {allocated} B before the workers")
+    # a bf16 prefill's bits depend on its group's size (the GEMMs' M; decode
+    # is all slots, so its rows do not; tools/prefill_groups.py), so the
+    # tokens must be equal where a request's group was the same in both runs
+    check(all(tokens[r] == solo_tokens[r] for r in same_group),
+          f"tokens differ from the one-worker run's for a request prefilled in the same "
+          f"group in both runs: {[r for r in same_group if tokens[r] != solo_tokens[r]]}")
     check(pair["served_by"]["e1"] >= 1 and pair["done_objects"] == SHARED_REQUESTS,
           f"served by {pair['served_by']}")
     check(by_pid or holding >= 2,
@@ -2116,7 +2395,7 @@ def load_port():
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "child":  # phases 6a and 6c
+    if len(sys.argv) > 2 and sys.argv[1] == "child":  # phases 6a, 6c and 7c
         return child_main(sys.argv[2], sys.argv[3:])
     import numpy as np
     import torch
@@ -2210,7 +2489,8 @@ def main() -> int:
         launches[f"{cfg.name}-train"] = phase_train_step(torch, np, port, dev, card, cfg)
         lap(f"5d/5e {cfg.name} train")
     phase_launch_train(card, "xlstm-1.3b")
-    lap("5e launch.train xlstm-1.3b")
+    phase_launch_train(card, "zamba2-1.2b")  # the reduced hybrid: P = N = 16
+    lap("5e launch.train xlstm-1.3b, zamba2-1.2b")
     # phase 5f: one super block of 6 Mamba layers + the shared block + 1
     # tail layer; one group of 7 mLSTM blocks + 1 sLSTM block
     for arch, n in (("zamba2-1.2b", 7), ("xlstm-1.3b", 8)):
@@ -2227,6 +2507,8 @@ def main() -> int:
     lap("6b two llama3-8b workers over shared roots")
     launches["llama3-8b-elastic-resume"] = phase_elastic_resume(torch, np, port, dev, card)
     lap("6c elastic resume from disk")
+    phase_bsp(card)
+    lap("7 BSP, MapReduce, terasort, the parameter server")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),
@@ -2265,6 +2547,8 @@ def main() -> int:
             entry["zamba2_train"] = train_times(name, "zamba2-train-2x1024")
         if name == "ssd":
             entry["train"] = train_times(name, "train-2x1024")
+            entry["widths"] = sorted({(r["P"], r["N"]) for r in rows[name]})
+            entry["build_s"] = build["mamba2_ssd"]
         if name == "mlstm":
             entry["train"] = train_times(name, MLSTM_TRAIN_CASE)
         kernels.append(entry)

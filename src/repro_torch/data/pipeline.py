@@ -79,13 +79,17 @@ _WORDS = (
 
 
 def make_documents(n_docs: int, lines_per_doc: int, seed: int = 0) -> List[List[str]]:
+    """The JAX package's documents for the same seed: ``rng.choice`` over
+    the word list draws ``rng.integers(0, len(words), n)``, which is taken
+    here directly (the same draws, without converting the list to an array
+    at every line)."""
     rng = np.random.default_rng(seed)
     docs = []
     for _ in range(n_docs):
         lines = []
         for _ in range(lines_per_doc):
             n = rng.integers(4, 12)
-            lines.append(" ".join(rng.choice(_WORDS, size=n)))
+            lines.append(" ".join([_WORDS[i] for i in rng.integers(0, len(_WORDS), size=n)]))
         docs.append(lines)
     return docs
 

@@ -15,8 +15,9 @@ It dispatches on the tensor's device: a CPU tensor goes to
 take raises.  There is no fallback.  The kernel library picks by dtype
 (:data:`ROUTES`): bf16 runs the chunk-parallel tensor-core kernels (the
 serving path: one launch up to :data:`CLUSTER_CHUNKS` chunks, else three,
-with fp32 scratch for the chunks' states), fp32 the scalar kernel (held to
-the fp32 bar).  ``ssd.launches`` counts calls that launched,
+with fp32 scratch for the chunks' states, padded to the kernels' tile
+widths), fp32 the scalar kernel (held to the fp32 bar).  Both take the
+(P, N) of :data:`WIDTHS`; others raise.  ``ssd.launches`` counts calls that launched,
 ``ssd.route_launches`` splits them by route.  Any S is taken: the kernels
 mask the ragged last chunk themselves.
 
@@ -37,8 +38,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-HEAD_DIMS = (64,)  # P
-STATE_DIMS = (64,)  # N
+# (P, N) the kernels take: zamba2-1.2b; the reduced configs; the JAX
+# package's kernel tests; Mamba2's published state width.  The kernels pad
+# P and N up to a multiple of 16 in shared memory (csrc/mamba2_ssd.cu).
+WIDTHS = ((64, 64), (16, 16), (16, 8), (32, 16), (8, 4), (64, 128))
 MAX_CHUNK = 128  # rows of the kernel's chunk tile (csrc/mamba2_ssd.cu)
 CLUSTER_CHUNKS = 8  # up to this many chunks the bf16 route is one cluster launch, no scratch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +51,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _ARGTYPES = [_P] * 10 + [_I] * 7 + [_L] * 12 + [_I, _P]
+
+
+def _tile(w: int) -> int:
+    """A width padded up to the kernels' mma tile (16)."""
+    return -(-w // 16) * 16
 
 
 def _lib():
@@ -141,8 +149,9 @@ def _check(x, dt, A, Bmat, Cmat, D, chunk):
             or (D is not None and D.shape != (H,)) or S < 1 or G < 1 or H % G):
         raise ValueError(f"shapes x{tuple(x.shape)} dt{tuple(dt.shape)} A{tuple(A.shape)} "
                          f"B{tuple(Bmat.shape)} D{None if D is None else tuple(D.shape)}")
-    if P not in HEAD_DIMS or N not in STATE_DIMS:
-        raise ValueError(f"head_dim {P} / state_dim {N} not supported by the kernel")
+    if (P, N) not in WIDTHS:
+        raise ValueError(f"head_dim {P} / state_dim {N} not supported by the kernel "
+                         f"(it takes (P, N) in {WIDTHS})")
     if not 1 <= min(chunk, S) <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
     if x.dtype not in _DTYPES or Bmat.dtype != x.dtype or Cmat.dtype != x.dtype:
@@ -157,11 +166,8 @@ def _check(x, dt, A, Bmat, Cmat, D, chunk):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("x", x), ("B", Bmat), ("C", Cmat)):
-        es = t.element_size()
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: last dim must be contiguous")
-        if t.data_ptr() % 16 or any((s * es) % 16 for s in t.stride()[:-1]):
-            raise ValueError(f"{name}: rows must be 16-byte aligned")
 
 
 def ssd(
@@ -194,7 +200,8 @@ def ssd(
     n_chunks = -(-S // chunk)
     d_state = a_tot = None
     if ROUTES[x.dtype] == "mma" and n_chunks > CLUSTER_CHUNKS:  # dS, then the entering states
-        d_state = torch.empty((Bz, n_chunks, H, P, N), dtype=torch.float32, device=x.device)
+        d_state = torch.empty((Bz, n_chunks, H, _tile(P), _tile(N)), dtype=torch.float32,
+                              device=x.device)
         a_tot = torch.empty((Bz, n_chunks, H), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib()(

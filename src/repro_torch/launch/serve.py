@@ -40,8 +40,10 @@ its requests carry no audio frames (``Engine.generate`` with
 The worker prints ``READY <engine-id>`` after warmup so orchestrators can
 wait for it before submitting, and on idle exit ``launches {...}``, each
 CUDA kernel's launches while it served (JSON; all 0 on the CPU, which runs
-the plain versions), then the stats line.  Weights are random, from
-seed 0.
+the plain versions), then the stats line; while it serves, ``prefill
+[ids]`` for each prefill group as it runs (a bf16 prefill's bits depend on
+its group's size, so a comparison of two runs' tokens needs the groups).
+Weights are random, from seed 0.
 """
 
 from __future__ import annotations
@@ -135,6 +137,7 @@ def main(argv=None) -> None:
         store = ObjectStore()
 
     engine = build_engine(args)
+    engine.on_prefill = lambda ids: print("prefill " + json.dumps(ids), flush=True)
     print(f"READY {args.engine_id}", flush=True)
 
     if args.demo_requests:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +82,10 @@ class ContinuousEngine:
             "prefill_groups": 0,
             "decode_steps": 0,
         }
+        # called with each prefill group's request ids, in row order: a
+        # bf16 prefill's bits depend on the group's size (the GEMMs' M), so
+        # a caller comparing two runs' tokens needs each request's group
+        self.on_prefill: Optional[Callable[[List[str]], None]] = None
 
     # ---- slot bookkeeping ------------------------------------------------
 
@@ -168,6 +172,8 @@ class ContinuousEngine:
                 self.steps[i] = 1
                 self.seeds[i] = gseeds[j]
             self.stats["prefill_groups"] += 1
+            if self.on_prefill is not None:
+                self.on_prefill([req_id for req_id, _, _ in group])
         self.stats["admissions"] += len(requests)
         if was_live:
             self.stats["mid_batch_admissions"] += len(requests)

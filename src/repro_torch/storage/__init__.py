@@ -1,6 +1,7 @@
 """Storage plane: object store (S3 semantics), KV store (Redis semantics),
-serialization and the paper-calibrated perf models (copies of
-`repro.storage`, without the ``repro-kvd`` wire tier).
+shuffle, serialization and the paper-calibrated perf models (copies of
+`repro.storage`, without the ``repro-kvd`` wire tier; ``shuffle`` is
+imported as a module, as in the JAX package).
 
 Two substrates behind one API each: the in-memory ``KVStore`` and
 ``InMemoryBackend`` for one process, and the file-backed ``FileKVStore``

@@ -29,9 +29,10 @@ version at 1e-6 relative (the same computation; fp32 inside); the SSD scan
 and the mLSTM run theirs inside it the same way, their gradients held equal to autograd of the plain version bit for bit; the
 wrappers called directly (and decode attention) raise under autograd; one
 reduced train step on the card against the CPU (fp32, TF32 off) for
-llama3-8b, xlstm-1.3b and zamba2-1.2b (its reduced config widened to the
-SSD kernel's P = N = 64): loss and metrics 1e-5, parameters 1e-5 but for
-at most 1e-4 of the elements, all within lr.
+llama3-8b, xlstm-1.3b and zamba2-1.2b (its reduced config as it is, P = N
+= 16): loss and metrics 1e-5, parameters 1e-5 but for at most 1e-4 of the
+elements, all within lr; and `launch.train --arch zamba2-1.2b --reduced`
+on the default device.
 
 The storage plane on the card: two ``repro_torch.launch.serve`` workers
 (reduced llama3-8b, the default device) over shared file roots, one
@@ -252,8 +253,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fmod.flash_attention(q, q.bfloat16(), q.bfloat16())
 
 
-def _ssd_inputs(rng, B, S, H, G, dev, dtype, with_d=True):
-    P = N = 64
+def _ssd_inputs(rng, B, S, H, G, dev, dtype, with_d=True, P=64, N=64):
     x, Bm, Cm = (_t(rng, s, dev, dtype) for s in ((B, S, H, P), (B, S, G, N), (B, S, G, N)))
     dt = torch.nn.functional.softplus(_t(rng, (B, S, H), dev, torch.float32))
     A = -torch.exp(_t(rng, (H,), dev, torch.float32))
@@ -277,6 +277,27 @@ def _check_ssd(out, exp, return_state):
 def test_ssd_kernel_matches_plain(cuda, S, G, dtype, with_d, return_state):
     rng = np.random.default_rng(S + G)
     x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 2, S, 8, G, cuda, dtype, with_d)
+    _ssd_route_check(x, dt, A, Bm, Cm, D, dtype, return_state)
+
+
+# every (P, N) of the kernels (smod.WIDTHS): zamba2, the reduced configs,
+# the JAX kernel tests' (16, 8), (32, 16), (8, 4), and Mamba2's N = 128
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N", smod.WIDTHS)
+@pytest.mark.parametrize("S,dtype", [(77, torch.float32), (300, torch.float32),
+                                     (77, torch.bfloat16), (300, torch.bfloat16),
+                                     (1100, torch.bfloat16)])
+@pytest.mark.parametrize("return_state", [True, False])
+def test_ssd_kernel_matches_plain_at_every_width(cuda, P, N, S, dtype, return_state):
+    """Both routes at each width: one ragged chunk, three (the bf16 cluster
+    launch), and 9 in bf16 (the three launches through scratch; fp32 stays
+    at serving lengths, where the unnormalised scan meets its 2e-5 bar)."""
+    rng = np.random.default_rng(P + N + S)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 2, S, 8, 2, cuda, dtype, True, P, N)
+    _ssd_route_check(x, dt, A, Bm, Cm, D, dtype, return_state)
+
+
+def _ssd_route_check(x, dt, A, Bm, Cm, D, dtype, return_state):
     route = smod.ROUTES[dtype]
     before, before_route = smod.ssd.launches, smod.ssd.route_launches[route]
     out = smod.ssd(x, dt, A, Bm, Cm, D, chunk=128, return_state=return_state)
@@ -326,11 +347,34 @@ def test_ssd_kernel_reads_conv_output_views(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P,N", [(8, 4), (16, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_narrow_conv_output_views(cuda, P, N, dtype):
+    """Views of one conv output whose B and C rows are not whole 16-byte
+    pieces (N = 4 or 8 at an odd group count): the element-by-element
+    loads."""
+    rng = np.random.default_rng(P + N)
+    Bz, S, H, G = 2, 150, 6, 3
+    d_in, gn = H * P, G * N
+    xbc = _t(rng, (Bz, S, d_in + 2 * gn), cuda, dtype)
+    x = xbc[..., :d_in].reshape(Bz, S, H, P)
+    Bm = xbc[..., d_in:d_in + gn].reshape(Bz, S, G, N)
+    Cm = xbc[..., d_in + gn:].reshape(Bz, S, G, N)
+    _, dt, A, _, _, D = _ssd_inputs(rng, Bz, S, H, G, cuda, dtype, True, P, N)
+    out = smod.ssd(x, dt, A, Bm, Cm, D, chunk=64, return_state=True)
+    exp = smod.ssd_plain(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(), D,
+                         chunk=64, return_state=True)
+    _check_ssd(out, exp, True)
+
+
+@pytest.mark.cuda
 def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     rng = np.random.default_rng(2)
     x, dt, A, Bm, Cm, D = _ssd_inputs(rng, 1, 16, 4, 2, cuda, torch.float32)
-    with pytest.raises(ValueError):  # head_dim 32
+    with pytest.raises(ValueError):  # (P, N) = (32, 64), not among smod.WIDTHS
         smod.ssd(x[..., :32].contiguous(), dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError):  # (P, N) = (64, 32)
+        smod.ssd(x, dt, A, Bm[..., :32].contiguous(), Cm[..., :32].contiguous(), D)
     with pytest.raises(TypeError):  # bf16 dt
         smod.ssd(x, dt.bfloat16(), A, Bm, Cm, D)
     with pytest.raises(TypeError):  # mixed x / B types
@@ -749,13 +793,6 @@ def test_reduced_train_step_cuda_matches_cpu(cuda, monkeypatch, fused):
     assert float(diffs.max()) <= 1e-3
 
 
-def _widened_hybrid():
-    """The reduced hybrid with the SSD kernel's P = N = 64 (d_model 128:
-    4 heads of 64); the reduced config's P = N = 16 the kernel refuses."""
-    cfg = CONFIGS["zamba2-1.2b"].reduced()
-    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, head_dim=64, state_dim=64))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
 def test_recurrent_train_step_cuda_matches_cpu(cuda, monkeypatch, arch):
@@ -765,7 +802,7 @@ def test_recurrent_train_step_cuda_matches_cpu(cuda, monkeypatch, arch):
     recompute)."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     if arch == "zamba2-1.2b":
-        cfg, counter = _widened_hybrid(), smod.ssd
+        cfg, counter = CONFIGS[arch].reduced(), smod.ssd
         layers = cfg.n_layers
     else:
         cfg, counter = CONFIGS[arch].reduced(), mmod.mlstm
@@ -788,6 +825,22 @@ def test_recurrent_train_step_cuda_matches_cpu(cuda, monkeypatch, arch):
                        zip(tree_flatten(s_gpu.params)[0], tree_flatten(s_cpu.params)[0])])
     assert int((diffs > 1e-5).sum()) <= 1e-4 * diffs.numel()
     assert float(diffs.max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_launch_train_reduced_hybrid_on_the_default_device(cuda):
+    """``launch.train --arch zamba2-1.2b --reduced`` with no ``--device``:
+    the reduced hybrid (P = N = 16) through the SSD kernel on the card."""
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "zamba2-1.2b",
+         "--reduced", "--steps", "4", "--steps-per-chunk", "2"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1].endswith("checkpoint v2"), lines
+    losses = json.loads(lines[-2].split(": ", 1)[1])
+    assert len(losses) == 2 and all(np.isfinite(losses))  # one loss per 2-step chunk
 
 
 # ---------------------------------------------------------------------------

@@ -369,6 +369,34 @@ def _ssd_state_passing(x, dt, A, Bm, Cm, D, chunk, single=None):
     return y, h
 
 
+@pytest.mark.parametrize("P,N", [(p, n) for p, n in smod.WIDTHS if p % 16 or n % 16])
+def test_ssd_padding_to_the_mma_tile_changes_nothing(P, N):
+    """The kernels pad P and N up to a multiple of 16 in shared memory, with
+    zeros: the chunk-parallel decomposition over zero-padded x, B and C,
+    cut back to (P, N), is the plain scan at the unpadded widths."""
+    x, dt, A, Bm, Cm, D = _t(_ssd_inputs(1, 150, 4, P, 2, N, P + N))
+    pp, nn = smod._tile(P), smod._tile(N)
+    xp = F.pad(x, (0, pp - P))
+    Bp, Cp = (F.pad(m, (0, nn - N)) for m in (Bm, Cm))
+    y, h = _ssd_state_passing(xp, dt, A, Bp, Cp, D, 64)
+    ey, eh = smod.ssd_plain(x, dt, A, Bm, Cm, D, chunk=64, return_state=True)
+    torch.testing.assert_close(y[..., :P], ey, **SSD_TOL)
+    torch.testing.assert_close(h[..., :P, :N], eh, **SSD_TOL)
+    for pad in (y[..., P:], h[..., P:, :], h[..., N:]):  # the padding stays zero
+        assert int(torch.count_nonzero(pad)) == 0
+
+
+def test_ssd_wrapper_takes_every_width_of_the_set_and_no_other():
+    for P, N in smod.WIDTHS + ((32, 64), (64, 32), (128, 64), (12, 8)):
+        x, dt, A, Bm, Cm, D = _t(_ssd_inputs(1, 8, 2, P, 1, N, 0))
+        if (P, N) in smod.WIDTHS:
+            smod._check(x, dt, A, Bm, Cm, D, 128)
+        else:
+            with pytest.raises(ValueError, match="not supported"):
+                smod._check(x, dt, A, Bm, Cm, D, 128)
+    assert [smod._tile(w) for w in (4, 8, 16, 32, 64, 128)] == [16, 16, 16, 32, 64, 128]
+
+
 @pytest.mark.parametrize("S", [16, 128, 129, 300])
 @pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("chunk", [64, 128])

@@ -305,7 +305,50 @@ def test_recurrent_gradients_match_jax(arch):
         assert float(a.abs().max()) > 0
 
 
+def _moment_errors(jtree, ttree, tc):
+    """Each leaf's largest |port - JAX| over the JAX leaf's largest |value|."""
+    exp = params_from_jax(jax.tree_util.tree_map(np.asarray, jtree), tc)
+    return [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(tree_flatten(ttree)[0], tree_flatten(exp)[0])]
+
+
+def test_optimizer_moments_match_jax_on_the_same_gradients():
+    """The two AdamW updates alone: JAX's five clipped gradients, each at
+    JAX's parameters of that step, fed to both optimizers.  With the same
+    inputs the moments agree to 1e-6 of each leaf's max (measured on the
+    CPU: bit for bit, 0.0) and the updates to 1e-6 (measured 1.9e-7)."""
+    jc, tc, jp, tp = _model("llama3-8b", n_layers=2)
+    jo = jopt.adamw(jopt.cosine_schedule(3e-3, warmup=2, total=5))
+    to = topt.adamw(topt.cosine_schedule(3e-3, warmup=2, total=5))
+    loss = jts.make_loss_fn(jc)
+    grad = jax.jit(jax.grad(lambda p, b: loss(p, b)[0]))
+    params, jstate, tstate = jp, jo.init(jp), to.init(tp)
+    for i in range(5):
+        jb, _ = _batches(jc, step=i)
+        g, _ = jopt.clip_by_global_norm(grad(params, jb), 1.0)
+        to_port = partial(params_from_jax, cfg=tc)
+        jup, jstate = jo.update(g, jstate, params)
+        tup, tstate = to.update(to_port(jax.tree_util.tree_map(np.asarray, g)), tstate,
+                                to_port(jax.tree_util.tree_map(np.asarray, params)))
+        params = jopt.apply_updates(params, jup)
+    assert max(_moment_errors(jstate.m, tstate.m, tc)) <= 1e-6
+    assert max(_moment_errors(jstate.v, tstate.v, tc)) <= 1e-6
+    assert max(_moment_errors(jup, tup, tc)) <= 1e-6
+
+
 def test_five_train_steps_match_jax():
+    """Five whole train steps (loss, clipped gradients, AdamW) from the same
+    parameters.  The moments agree within 1e-5 of each leaf's max after
+    step 1 (measured on the CPU: 2.2e-6 for m, 2.6e-6 for v).  After that
+    the parameters differ (Adam moves an element whose gradient is near 0
+    by up to lr in a direction its noise sets), so the later gradients are
+    taken at slightly different points: the moments' drift measured 1.04e-4
+    after step 2 and 0.88e-4, 0.88e-4, 1.00e-4 (m; v 8.3e-5) after steps
+    3-5, spread over 19 of the 21 leaves, and never growing.  So each leaf
+    of the 5-step moments is held to 3e-4 of its max (3x the worst measured
+    drift), and the drift after step 5 to at most twice the drift after
+    step 2 (no accumulation).  Optimizer parity on equal gradients is
+    `test_optimizer_moments_match_jax_on_the_same_gradients` (1e-6)."""
     jc, tc, jp, tp = _model("llama3-8b", n_layers=2)
     jo = jopt.adamw(jopt.cosine_schedule(3e-3, warmup=2, total=5))
     to = topt.adamw(topt.cosine_schedule(3e-3, warmup=2, total=5))
@@ -313,11 +356,16 @@ def test_five_train_steps_match_jax():
     tstate = tts.TrainState(params=tp, opt_state=to.init(tp))
     jstep = jax.jit(jts.make_train_step(jc, jo))
     tstep = tts.make_train_step(tc, to)
+    drift = []
     for i in range(5):
         jb, tb = _batches(jc, step=i)
         jstate, jm = jstep(jstate, jb)
         tstate, tm = tstep(tstate, tb)
         assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-4, abs=1e-4)
+        drift.append(max(_moment_errors(jstate.opt_state.m, tstate.opt_state.m, tc)
+                         + _moment_errors(jstate.opt_state.v, tstate.opt_state.v, tc)))
+        if i == 0:
+            assert drift[0] <= 1e-5
     # Adam moves an element whose gradient is near 0 by up to lr in a
     # direction set by that gradient's noise, so a few elements miss 1e-5
     # (measured: 14 of 459392, the worst 1.1e-4 = 0.036 lr); every element
@@ -330,10 +378,7 @@ def test_five_train_steps_match_jax():
     # JAX's fp32 moments have the parameter tree's structure: the bridge
     # converts them as it converts the parameters
     assert int(tstate.opt_state.step) == int(jstate.opt_state.step) == 5
-    for jm_, tm_ in ((jstate.opt_state.m, tstate.opt_state.m), (jstate.opt_state.v, tstate.opt_state.v)):
-        exp = params_from_jax(jax.tree_util.tree_map(np.asarray, jm_), tc)
-        for a, b in zip(tree_flatten(tm_)[0], tree_flatten(exp)[0]):
-            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert drift[4] <= 3e-4 and drift[4] <= 2 * drift[1]
 
 
 @pytest.mark.parametrize("arch,seq", [
