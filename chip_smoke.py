@@ -39,8 +39,9 @@ script exits non-zero:
    shared attention block every 6) the same way; the ssd, flash and decode
    counters all > 0 during this phase (flash and the SSD all on their
    tensor-core routes); then its decode-step profile;
-3c. serve: xlstm-1.3b at full width (48 layers: 6 groups of 7 mLSTM + 1
-   sLSTM, mLSTM head dim 1024) the same way; the mlstm counter > 0 during
+3c. serve: xlstm-1.3b at full width (mLSTM head dim 1024) cut in depth to
+   ``XLSTM_SERVE_LAYERS`` = 16 of its 48 blocks (2 of its 6 groups of 7
+   mLSTM + 1 sLSTM) the same way; the mlstm counter > 0 during
    this phase; then its decode-step profile, whose least step time counts
    the recurrent state read and written beside the weights;
 3d. serve: olmoe-1b-7b at full width (16 MoE layers of 64 experts, top-8,
@@ -102,7 +103,7 @@ script exits non-zero:
    again after the warm cache is cleared and v1 deleted writes the same
    leaf bytes; then ``python -m repro_torch.launch.train --arch llama3-8b
    --reduced --steps 4 --steps-per-chunk 2`` on the card;
-5c. train consistency: llama3-8b width at 2 layers in fp32 (TF32 off), one
+5c. train consistency: llama3-8b width at 1 layer in fp32 (TF32 off), one
    batch of 128 tokens, the loss and gradients on the card against the CPU,
    then the int8 optimizer given the same gradients on both devices;
 5d. train: zamba2-1.2b at full width and depth (38 Mamba2 layers, the
@@ -113,9 +114,9 @@ script exits non-zero:
    leaf's gradient nonzero (in_proj, A_log, dt_bias and D of every Mamba
    layer, the shared block's wq/wk/wv among them), peak memory under 14
    GB; the device ms of the plain SSD and attention backwards;
-5e. train: xlstm-1.3b at full width cut to 2 of its 6 groups
-   (``XLSTM_TRAIN_LAYERS``: 14 mLSTM + 2 sLSTM blocks) the same way: the
-   mLSTM kernels inside ``PlainBackwardFn``, exactly 28 launches per step
+5e. train: xlstm-1.3b at full width cut to 1 of its 6 groups
+   (``XLSTM_TRAIN_LAYERS``: 7 mLSTM + 1 sLSTM blocks) the same way: the
+   mLSTM kernels inside ``PlainBackwardFn``, exactly 14 launches per step
    (all on the tensor-core route), every leaf nonzero
    (w_qhw/w_khw/w_vhw/w_igate/w_fgate of every mLSTM block and r_kernel of
    every sLSTM block among them), peak memory under 19 GB, its sequence
@@ -151,10 +152,10 @@ script exits non-zero:
    both runs, and the others are counted; each worker's kernel launches
    (its ``launches`` line);
 6c. elastic resume: llama3-8b width cut to 2 layers (bf16, int8 moments, 2
-   x 512 tokens, 2 steps a chunk): 4 chunks uninterrupted (in-memory
-   store), then 2 chunks on a ``FileBackend`` root here and 2 more in a
-   fresh process over the same root, whose losses must equal the
-   uninterrupted run's bit for bit; the disk's room first (three versions'
+   x 512 tokens, 2 steps a chunk): 2 chunks on a ``FileBackend`` root
+   here, then the third twice, here from the state in memory (the
+   uninterrupted run) and in a fresh process from the root, whose losses
+   must equal the uninterrupted run's bit for bit; the disk's room first (three versions'
    worth or the phase fails), the bytes of a version and the seconds to
    write and read one;
 7. BSP on the port's runtime over file roots (``FileBackend`` and a
@@ -169,7 +170,28 @@ script exits non-zero:
    written once, none lost); 7d HOGWILD! on the KV store as
    ``examples/hogwild_ps.py`` runs it (8 data shards; no bound, a
    staleness bound of 4, int8 compression): the loss falls; each part's
-   wall time on the host clock.
+   wall time on the host clock;
+8. the ``repro-kvd`` wire tier on the card's machine, in at most
+   ``WIRE_BUDGET_S`` = 150 s: the port's daemon through its CLI
+   (``python -m repro_torch.storage.net_server``) on a Unix socket (one
+   for 8a's two runs, one for 8b-8d); 8a llama3-8b at full width and
+   depth, 6b's engine (``WIRE_ENGINE``) in this process behind
+   ``ContinuousEngine.run`` over ``NetKVStore`` + ``NetBackend``: 6b's 16
+   requests, 12 at once and 4 the
+   moment the idle engine has entered ``blpop`` (which must return the
+   first of them), served over in-memory stores, then over a steady
+   daemon, then over one SIGKILLed once the first result is published and
+   restarted on its root and address; every request published once, the
+   engine's client reconnected once (two server generations seen), tokens
+   equal to the in-memory run's wherever the prefill group was the same;
+   tokens/s, TTFT p50, the kill to the next result (the daemon's restart
+   and the client's reconnect apart), bytes pickled and sent as buffer
+   frames, modelled requests, the kernels' launches; 8b 7b's terasort over
+   one daemon with 8 workers, the sorted partitions equal to 7b's byte for
+   byte; 8c 7c's adoption over one daemon, both children rebuilding the
+   stores from their ``net_kv`` / ``net_obj`` specs; 8d 7d's HOGWILD!
+   with the executor and the parameter server on one daemon, in 7d's
+   bands.  No fallback: a daemon that does not start fails the phase.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving and training phase, error and
@@ -200,6 +222,13 @@ SSD_STATE_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:167
 MLSTM_F32_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:242
 SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
 DEEPSEEK_SERVE_LAYERS = 4  # phase 3e: the 3 dense MLA layers + 1 MoE layer (31.6 GB in bf16)
+# phases 3c and 5c cut in depth so that phases 6-8 fit the script's time
+# limit: xlstm-1.3b serves 2 of its 6 groups (its sLSTM loop grows with the
+# depth; 3c took 55.1-60.4 s at 48 blocks), and the card-against-CPU train
+# check of llama3-8b's width runs 1 layer (the CPU's share is the
+# embedding and the head; 5c took 105.7-106.9 s at 2 layers)
+XLSTM_SERVE_LAYERS = 16
+LLAMA_CONSISTENCY_LAYERS = 1
 DEEPSEEK_CHECK_EXPERTS = 16  # phase 4e: routed experts of its MoE layer (fp32 on both devices)
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
 GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 4, 32  # phases 3f/3g: `Engine.generate` rows, prompt, tokens
@@ -1159,10 +1188,11 @@ MLSTM_TRAIN_CASE = "train-%dx%d" % TRAIN_SHAPE["xlstm-1.3b"]  # phase 2's row at
 # phase 5b: llama3-8b width cut to 2 layers, 1.487 B parameters (4 layers
 # until phase 6 needed the time)
 ELASTIC_LAYERS, ELASTIC_SEQ = 2, 512
-# phase 5e: xlstm-1.3b cut to 2 of its 6 groups (14 mLSTM + 2 sLSTM blocks)
-# to fit phase 6 in the time limit: the sLSTM loop and the summary of its
-# profiled step grow with the depth (5e took 207.9-245.6 s at 48 blocks)
-XLSTM_TRAIN_LAYERS = 16
+# phase 5e: xlstm-1.3b cut to 1 of its 6 groups (7 mLSTM + 1 sLSTM blocks)
+# to fit phases 6-8 in the time limit: the sLSTM loop and the summary of its
+# profiled step grow with the depth (5e took 207.9-245.6 s at 48 blocks,
+# 87.7 s at 16)
+XLSTM_TRAIN_LAYERS = 8
 # peak memory of the train phases.  5d and 5e: the parameters and int8
 # moments measured on an H100 plus twice the rest of the measured peak
 # (gradients, activations, the plain backwards' fp32 temporaries):
@@ -1204,12 +1234,12 @@ def train_launches(cfg):
 
 
 # the launches per step of phases 5a, 5d and 5e, as numbers: 32 attention
-# layers; 38 Mamba layers and 6 shared-block calls; 14 mLSTM blocks (5e's
-# 16 of 48)
+# layers; 38 Mamba layers and 6 shared-block calls; 7 mLSTM blocks (5e's
+# 8 of 48)
 TRAIN_LAUNCHES = {
     "llama3-8b": {"flash_attention": 64},
     "zamba2-1.2b": {"ssd": 76, "flash_attention": 12},
-    "xlstm-1.3b": {"mlstm": 28},
+    "xlstm-1.3b": {"mlstm": 14},
 }
 
 
@@ -1275,6 +1305,7 @@ def phase_train_step(torch, np, port, dev, card, cfg):
     profiled step's device time of each kernel's forward and of each plain
     backward (a profiler range each); for the xLSTM also the sLSTM blocks'
     share of each step on the host clock."""
+    import gc
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1286,6 +1317,9 @@ def phase_train_step(torch, np, port, dev, card, cfg):
           f"{cfg.name}: launches per step {expect}, expected {TRAIN_LAUNCHES[cfg.name]}")
     mem_limit = MEM_LIMIT_GB[cfg.name]
     L = cfg.n_layers
+    # the peak is this phase's own: an earlier phase's tensors that only a
+    # reference cycle still holds are freed first
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1655,10 +1689,7 @@ def phase_bsp(card):
     import tempfile
     from collections import Counter
 
-    import numpy as np
-
-    from repro_torch.core import ParameterServer, PSConfig, WrenExecutor, hogwild_sgd
-    from repro_torch.core import terasort, verify_sorted, word_count
+    from repro_torch.core import WrenExecutor, word_count
     from repro_torch.data import make_documents
 
     root = tempfile.mkdtemp(prefix="chip-smoke-bsp-")
@@ -1689,110 +1720,161 @@ def phase_bsp(card):
         check(wc == dict(truth), "word count differs from an in-process Counter")
 
         # 7b: terasort, intermediates on the KV_SHARDS-shard KV
-        kv, store, wex = bsp_stores(os.path.join(root, "sort"))
-        try:
-            t0 = time.perf_counter()
-            keys = sort_inputs(store, SORT_RECORDS, SORT_FILES)
-            setup_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rep = terasort(wex, keys, "sorted", SORT_FILES, intermediate=kv)
-            wall = time.perf_counter() - t0
-            ok = verify_sorted(store, "sorted")
-            left = kv.scan("shuffle/")
-            n_out = sum(len(store.get(k)) for k in store.list("sorted"))
-        finally:
-            wex.shutdown()
-            kv.close()
-        emit({"phase": "bsp_terasort", "records": SORT_RECORDS, "input_objects": SORT_FILES,
-              "partitions": SORT_FILES, "kv_shards": KV_SHARDS, "setup_s": setup_s,
-              "wall_s": wall, "MB_per_s": SORT_RECORDS * 100 / 1e6 / wall,
-              "n_records": rep.n_records, "n_intermediate_objects": rep.n_intermediate_objects,
-              "hottest_shard_vtime_s": rep.hottest_shard_vtime, "sorted": ok,
-              "shuffle_keys_left": len(left), "clock": "host", "card": card})
-        check(ok and rep.n_records == n_out == SORT_RECORDS, "terasort: not sorted, or "
-              f"{rep.n_records} / {n_out} records of {SORT_RECORDS}")
-        check(rep.n_intermediate_objects == SORT_FILES * SORT_FILES,
-              f"{rep.n_intermediate_objects} intermediate objects")
-        check(not left, f"{len(left)} shuffle intermediates left after the merge")
+        sort7b = run_terasort(*bsp_stores(os.path.join(root, "sort")), "bsp_terasort", card)
 
         # 7c: a sort driver SIGKILLed between partition and merge, adopted by
         # a fresh process
-        t0 = time.perf_counter()
-        aroot = os.path.join(root, "adopt")
-        drv = spawn_child("sort-driver", aroot)
-        try:
-            drv.wait(timeout=CHILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            drv.kill()
-            check(False, "the sort driver never reached its kill barrier")
-        check(drv.returncode == -9, f"the sort driver exited {drv.returncode}: "
-                                    f"{drv.stderr.read()[-2000:]}")
-        adopted = child_json(spawn_child("sort-adopt", aroot), "the adopting process")
-        adopted.update(phase="bsp_adopt", wall_s=time.perf_counter() - t0, clock="host",
-                       card=card)
-        emit(adopted)
-        check(adopted["sorted"] and adopted["records_equal_inputs"]
-              and adopted["n_records"] == ADOPT_RECORDS and adopted["merge_tasks"] == ADOPT_FILES
-              and adopted["shuffle_keys_left"] == 0, f"adoption: {adopted}")
+        run_adoption(os.path.join(root, "adopt"), "bsp_adopt", card)
 
         # 7d: HOGWILD! on the KV store, as examples/hogwild_ps.py runs it
-        rng = np.random.default_rng(0)
-        w_true = rng.normal(size=PS_DIM)
-        shards = []
-        for _ in range(PS_SHARDS):
-            X = rng.normal(size=(PS_ROWS, PS_DIM))
-            shards.append((X, X @ w_true + 0.01 * rng.normal(size=PS_ROWS)))
-        for label, cfg in (("hogwild", PSConfig(num_blocks=8)),
-                           ("staleness<=4", PSConfig(num_blocks=8, max_staleness=4)),
-                           ("int8", PSConfig(num_blocks=8, compress_int8=True))):
-            with WrenExecutor(num_workers=6) as wex:
-                server = ParameterServer(wex.kv, np.zeros(PS_DIM), cfg)
-                wex.kv.ledger.clear()
-                t0 = time.perf_counter()
-                w = hogwild_sgd(wex, server, ps_grad, shards, steps_per_worker=PS_STEPS, lr=0.01)
-                wall = time.perf_counter() - t0
-                applied = sum(int(v) for v in wex.kv.mget(
-                    [server._vkey(b) for b in range(cfg.num_blocks)]))
-                recs = [r for r in wex.kv.ledger.records() if r.worker.startswith("psw")]
-                # a straggler's speculative copy runs its steps too (HOGWILD!
-                # takes its pushes), so count the attempts that ran
-                attempts = sum(st.tasks_ok + st.tasks_superseded
-                               for st in wex.pool.stats().values())
-            loss0, loss1 = _ps_loss(np.zeros(PS_DIM), shards), _ps_loss(w, shards)
-            row = {"phase": "bsp_hogwild", "config": label, "shards": PS_SHARDS,
-                   "steps_per_worker": PS_STEPS, "wall_s": wall, "loss_start": loss0,
-                   "loss_end": loss1, "task_attempts": attempts, "pushes": attempts * PS_STEPS,
-                   "blocks_applied": applied,
-                   "blocks_rejected": attempts * PS_STEPS * cfg.num_blocks - applied,
-                   "kv_requests": len(recs), "kv_bytes": sum(r.nbytes for r in recs),
-                   "rel_err": float(np.linalg.norm(w - w_true) / np.linalg.norm(w_true)),
-                   "clock": "host", "card": card}
-            emit(row)
-            check(loss1 < 0.1 * loss0, f"HOGWILD! ({label}): the loss went {loss0} -> {loss1}")
-            check(attempts >= PS_SHARDS and row["blocks_rejected"] >= 0
-                  and (row["blocks_rejected"] == 0 or cfg.max_staleness is not None),
-                  f"HOGWILD! ({label}): {attempts} task attempts, {applied} blocks applied")
+        run_hogwild(lambda: WrenExecutor(num_workers=6), "bsp_hogwild", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t_phase
     emit({"phase": "bsp", "wall_s": wall, "budget_s": BSP_BUDGET_S, "clock": "host",
           "card": card})
     check(wall <= BSP_BUDGET_S, f"phase 7 took {wall:.1f} s of its {BSP_BUDGET_S} s")
+    return sort7b
+
+
+def run_adoption(where, phase, card):
+    """7c: a sort driver child (``ADOPT_RECORDS`` records) SIGKILLed between
+    partition and merge, adopted by a fresh child, both over the stores
+    ``where`` names (`child_stores`); checked.  -> the adopter's row."""
+    t0 = time.perf_counter()
+    drv = spawn_child("sort-driver", where)
+    try:
+        drv.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        drv.kill()
+        check(False, "the sort driver never reached its kill barrier")
+    check(drv.returncode == -9, f"the sort driver exited {drv.returncode}: "
+                                f"{drv.stderr.read()[-2000:]}")
+    adopted = child_json(spawn_child("sort-adopt", where), "the adopting process")
+    adopted.update(phase=phase, wall_s=time.perf_counter() - t0, clock="host", card=card)
+    emit(adopted)
+    check(adopted["sorted"] and adopted["records_equal_inputs"]
+          and adopted["n_records"] == ADOPT_RECORDS and adopted["merge_tasks"] == ADOPT_FILES
+          and adopted["shuffle_keys_left"] == 0, f"adoption: {adopted}")
+    return adopted
+
+
+def run_terasort(kv, store, wex, phase, card):
+    """7b's job (``SORT_RECORDS`` records in ``SORT_FILES`` objects ->
+    ``SORT_FILES`` partitions, intermediates on ``kv``) on these stores,
+    checked; shuts ``wex`` down.  -> its row, with each sorted partition's
+    sha256 in key order."""
+    import hashlib
+
+    from repro_torch.core import terasort, verify_sorted
+
+    try:
+        t0 = time.perf_counter()
+        keys = sort_inputs(store, SORT_RECORDS, SORT_FILES)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = terasort(wex, keys, "sorted", SORT_FILES, intermediate=kv)
+        wall = time.perf_counter() - t0
+        ok = verify_sorted(store, "sorted")
+        left = kv.scan("shuffle/")
+        outs = {k: store.get_bytes(k) for k in store.list("sorted")}
+        n_out = sum(len(store.get(k)) for k in outs)
+    finally:
+        wex.shutdown()
+        kv.close()
+    row = {"phase": phase, "records": SORT_RECORDS, "input_objects": SORT_FILES,
+           "partitions": SORT_FILES, "kv_shards": KV_SHARDS, "setup_s": setup_s,
+           "wall_s": wall, "MB_per_s": SORT_RECORDS * 100 / 1e6 / wall,
+           "n_records": rep.n_records, "n_intermediate_objects": rep.n_intermediate_objects,
+           "hottest_shard_vtime_s": rep.hottest_shard_vtime, "sorted": ok,
+           "shuffle_keys_left": len(left),
+           "sorted_sha256": [hashlib.sha256(outs[k]).hexdigest() for k in sorted(outs)],
+           "clock": "host", "card": card}
+    emit(row)
+    check(ok and rep.n_records == n_out == SORT_RECORDS, "terasort: not sorted, or "
+          f"{rep.n_records} / {n_out} records of {SORT_RECORDS}")
+    check(rep.n_intermediate_objects == SORT_FILES * SORT_FILES,
+          f"{rep.n_intermediate_objects} intermediate objects")
+    check(not left, f"{len(left)} shuffle intermediates left after the merge")
+    return row
+
+
+def run_hogwild(make_executor, phase, card):
+    """7d: HOGWILD! as ``examples/hogwild_ps.py`` runs it, in its three
+    configurations, on a fresh ``make_executor()`` each (the parameter
+    server on its KV), checked against the loss and push bands."""
+    import numpy as np
+
+    from repro_torch.core import ParameterServer, PSConfig, hogwild_sgd
+
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=PS_DIM)
+    shards = []
+    for _ in range(PS_SHARDS):
+        X = rng.normal(size=(PS_ROWS, PS_DIM))
+        shards.append((X, X @ w_true + 0.01 * rng.normal(size=PS_ROWS)))
+    for label, cfg in (("hogwild", PSConfig(num_blocks=8)),
+                       ("staleness<=4", PSConfig(num_blocks=8, max_staleness=4)),
+                       ("int8", PSConfig(num_blocks=8, compress_int8=True))):
+        with make_executor() as wex:
+            server = ParameterServer(wex.kv, np.zeros(PS_DIM), cfg)
+            wex.kv.ledger.clear()
+            t0 = time.perf_counter()
+            w = hogwild_sgd(wex, server, ps_grad, shards, steps_per_worker=PS_STEPS, lr=0.01)
+            wall = time.perf_counter() - t0
+            applied = sum(int(v) for v in wex.kv.mget(
+                [server._vkey(b) for b in range(cfg.num_blocks)]))
+            recs = [r for r in wex.kv.ledger.records() if r.worker.startswith("psw")]
+            # a straggler's speculative copy runs its steps too (HOGWILD!
+            # takes its pushes), so count the attempts that ran
+            attempts = sum(st.tasks_ok + st.tasks_superseded
+                           for st in wex.pool.stats().values())
+        loss0, loss1 = _ps_loss(np.zeros(PS_DIM), shards), _ps_loss(w, shards)
+        row = {"phase": phase, "config": label, "shards": PS_SHARDS,
+               "steps_per_worker": PS_STEPS, "wall_s": wall, "loss_start": loss0,
+               "loss_end": loss1, "task_attempts": attempts, "pushes": attempts * PS_STEPS,
+               "blocks_applied": applied,
+               "blocks_rejected": attempts * PS_STEPS * cfg.num_blocks - applied,
+               "kv_requests": len(recs), "kv_bytes": sum(r.nbytes for r in recs),
+               "rel_err": float(np.linalg.norm(w - w_true) / np.linalg.norm(w_true)),
+               "clock": "host", "card": card}
+        emit(row)
+        check(loss1 < 0.1 * loss0, f"HOGWILD! ({label}): the loss went {loss0} -> {loss1}")
+        check(attempts >= PS_SHARDS and row["blocks_rejected"] >= 0
+              and (row["blocks_rejected"] == 0 or cfg.max_staleness is not None),
+              f"HOGWILD! ({label}): {attempts} task attempts, {applied} blocks applied")
 
 
 
-def bsp_child(role, root) -> None:
-    """7c's two processes: ``sort-driver`` submits a terasort and SIGKILLs
-    itself the instant the partition barrier commits; ``sort-adopt``
-    adopts the job in a fresh process and prints what it finds."""
+def child_stores(where, workers=4, lease_s=1.0):
+    """7c's and 8c's stores: file roots under a directory, or, for
+    ``net:<hex>``, the handles the parent pickled, which this process
+    rebuilds from their ``net_kv`` / ``net_obj`` reconnect specs."""
+    if not where.startswith("net:"):
+        return bsp_stores(where, workers=workers, lease_s=lease_s)
+    import pickle
+
+    from repro_torch.core import SchedulerConfig, WrenExecutor
+
+    kv, store = pickle.loads(bytes.fromhex(where[len("net:"):]))
+    return kv, store, WrenExecutor(store=store, kv=kv, num_workers=workers,
+                                   scheduler_config=SchedulerConfig(driver_lease_timeout_s=lease_s))
+
+
+def bsp_child(role, where) -> None:
+    """7c's and 8c's two processes: ``sort-driver`` submits a terasort and
+    SIGKILLs itself the instant the partition barrier commits;
+    ``sort-adopt`` adopts the job in a fresh process and prints what it
+    finds, and how it reached the stores."""
     import os
     import signal
 
     import numpy as np
 
     from repro_torch.core import adopt_job, bsp, verify_sorted
+    from repro_torch.storage import object_store
 
-    kv, store, wex = bsp_stores(root, workers=4, lease_s=1.0)
+    kv, store, wex = child_stores(where)
     if role == "sort-driver":
         orig = bsp._stage_barrier
 
@@ -1818,7 +1900,9 @@ def bsp_child(role, root) -> None:
            "sorted": verify_sorted(store, "sorted"), "output_records": len(outs),
            "records_equal_inputs": sorted(map(bytes, outs)) == sorted(map(bytes, ins)),
            "shuffle_keys_left": len(kv.scan("shuffle/")),
-           "manifest_keys_left": len(kv.scan("sched/job/smoke-sort/"))}
+           "manifest_keys_left": len(kv.scan("sched/job/smoke-sort/")),
+           "stores": [type(kv).__name__, type(store.backend).__name__],
+           "reconnected": sorted(kind for kind, _ in object_store._RECONNECT_CACHE)}
     wex.shutdown()
     kv.close()
     print(json.dumps(row), flush=True)
@@ -1865,7 +1949,7 @@ def child_json(proc, what):
 
 
 def child_main(role, args) -> int:
-    """The child processes of phases 6a, 6c and 7c."""
+    """The child processes of phases 6a, 6c, 7c and 8c."""
     import os
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -1893,7 +1977,7 @@ def child_main(role, args) -> int:
             kv.rpush("log", i, worker="w")
             kv.mset({"a": i, "b": i}, worker="w")
             i += 1
-    elif role in ("sort-driver", "sort-adopt"):  # 7c
+    elif role in ("sort-driver", "sort-adopt"):  # 7c, 8c
         bsp_child(role, args[0])
     elif role == "elastic":  # 6c: resume the run of the pickled config from the root
         import pickle
@@ -1926,7 +2010,7 @@ def phase_storage(card):
     n = 400
     wroot = os.path.join(root, "torn")
     try:
-        # the three children start together (each imports torch)
+        # the three children start together
         blpop = spawn_child("blpop", os.path.join(root, "wake"))
         race = spawn_child("race", os.path.join(root, "race-kv"), os.path.join(root, "race-obj"),
                            str(n))
@@ -2262,8 +2346,8 @@ def elastic_run(cfg, root, total_steps, device):
 
 def phase_elastic_resume(torch, np, port, dev, card):
     """6c: the elastic trainer resumed from a ``FileBackend`` root in a fresh
-    process.  Chunks 0 and 1 run here (versions 0-2 on disk); chunks 2 and 3
-    then run twice: here, from the state chunk 1 left in memory (the
+    process.  Chunks 0 and 1 run here (versions 0-2 on disk); chunk 2 then
+    runs twice: here, from the state chunk 1 left in memory (the
     uninterrupted run: the state never leaves the process), and in a child
     process that starts from version 2 on disk.  The losses must be equal
     bit for bit.  -> this process's kernel launches."""
@@ -2311,18 +2395,18 @@ def phase_elastic_resume(torch, np, port, dev, card):
         read_s = time.perf_counter() - t0
         del back
         store.delete_prefix("ckpt/probe/")
-        # the uninterrupted run's chunks 2 and 3, from the warm state
-        tcfg = el.ElasticTrainConfig(run="resume", steps_per_chunk=2, total_steps=8)
+        # the uninterrupted run's chunk 2, from the warm state
+        tcfg = el.ElasticTrainConfig(run="resume", steps_per_chunk=2, total_steps=6)
         chunk = el.make_chunk_fn(cfg, opt, ObjectStore(), tcfg, batch_fn, dev)
         t0 = time.perf_counter()
-        cont = [chunk(2), chunk(3)]
+        cont = [chunk(2)]
         t_cont = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
         el.WARM_CACHE.clear()
         del warm, chunk
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rest = child_json(spawn_child("elastic", root, "8", str(dev), pickle.dumps(cfg).hex()),
+        rest = child_json(spawn_child("elastic", root, "6", str(dev), pickle.dumps(cfg).hex()),
                           "the resuming process")["losses"]
         t_rest = time.perf_counter() - t0
         latest = ck.latest_version(store, "resume")
@@ -2341,16 +2425,318 @@ def phase_elastic_resume(torch, np, port, dev, card):
         "d_model": cfg.d_model, "batch": 2, "seq": RESUME_SEQ, "steps_per_chunk": 2,
         "params": n, "disk_free_B": disk.free, "version_leaf_bytes": version_bytes,
         "version_write_s": write_s, "version_read_s": read_s,
-        "first_two_chunks_s": t_first, "warm_two_chunks_s": t_cont, "resume_process_s": t_rest,
+        "first_two_chunks_s": t_first, "warm_chunk_s": t_cont, "resume_process_s": t_rest,
         "warm_starts": [h["warm_start"] for h in cont],
         "losses_uninterrupted": whole_l, "losses_resumed": split_l, "latest_version": latest,
         "launches": launches, "card": card,
     })
     check(all(h["warm_start"] == 1.0 for h in cont), "the uninterrupted run reloaded its state")
-    check(len(whole_l) == 4 and split_l == whole_l,
+    check(len(whole_l) == 3 and split_l == whole_l,
           f"resumed losses {split_l} differ from the uninterrupted run's {whole_l}")
-    check(latest == 4, f"the resumed run ended at v{latest}, expected v4")
+    check(latest == 3, f"the resumed run ended at v{latest}, expected v3")
     check(launches["flash_attention"] > 0, "the elastic runs launched no flash kernel")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the repro-kvd wire tier on the card's machine
+# ---------------------------------------------------------------------------
+
+WIRE_BUDGET_S = 150  # phase 8's wall time, all four parts
+WIRE_WAVES = (12, 4)  # 8a: requests submitted at once, then once the engine idles in blpop
+# 8a's engine: 6b's workers' (SERVE_WORKER_ARGS), built by the serve CLI's build_engine
+WIRE_ENGINE = dict(arch="llama3-8b", reduced=False, device="cuda", batch=4, max_len=1024,
+                   new_tokens=64, decode_chunk=8, queues=1, lease_timeout=2.0,
+                   cache_dtype="float32")
+DAEMON_TIMEOUT_S = 60  # a daemon's start or stop
+
+
+class Daemon:
+    """The port's ``repro-kvd`` daemon (``python -m
+    repro_torch.storage.net_server``, its CLI) on a Unix socket under
+    ``root``, SIGKILLable and restartable on the same root and address."""
+
+    def __init__(self, root):
+        import os
+
+        self.data = os.path.join(root, "data")
+        self.address = "unix:" + os.path.join(root, "kvd.sock")
+        self.proc, self.start_s, self.lines = None, [], []
+
+    def spawn(self):
+        """Start the process; `listening` waits for it to accept."""
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.storage.net_server", "--root", self.data,
+             "--uds", self.address[len("unix:"):], "--num-shards", str(KV_SHARDS),
+             "--fsync", "never"],
+            env=src_env(), text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        self._listening, t_listen = threading.Event(), []
+        self._t_listen = t_listen
+
+        def read(proc=self.proc, listening=self._listening):
+            for line in proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                if line.startswith("LISTENING"):
+                    t_listen.append(time.perf_counter())
+                    listening.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        return self
+
+    def listening(self):
+        ok = self._listening.wait(DAEMON_TIMEOUT_S)
+        check(ok and self.lines[-1] == f"LISTENING {self.address}",
+              f"the daemon did not start in {DAEMON_TIMEOUT_S} s: {self.lines[-20:]}")
+        self.start_s.append(self._t_listen[0] - self._t0)  # to LISTENING, waited or not
+        return self
+
+    def start(self):
+        return self.spawn().listening()
+
+    def kill(self):
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=DAEMON_TIMEOUT_S)
+        check(self.proc.returncode == -signal.SIGKILL, f"the daemon exited {self.proc.returncode}")
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=DAEMON_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=DAEMON_TIMEOUT_S)
+
+
+def net_stores(address):
+    from repro_torch.storage import NetBackend, NetKVStore, ObjectStore
+
+    return NetKVStore(address), ObjectStore(backend=NetBackend(address))
+
+
+def wire_serve_run(port, engine, stores, run, prompts, daemon=None):
+    """One run of 8a: ``engine.run`` over ``stores`` (the engine's pair,
+    then a submitting user's pair; one in-memory pair serves as both), the
+    requests ``<run>/req-NN``.  The first ``WIRE_WAVES[0]`` are submitted
+    at once; with a ``daemon``, it is SIGKILLed once the first result is
+    published and restarted on its root and address; the rest are
+    submitted the moment the idle engine has entered ``blpop``, which must
+    return the first of them (woken by the push, not by a later pop).
+    -> (row, each request's tokens, each request's prefill group as
+    request numbers)"""
+    import numpy as np
+
+    rp = port["rp"]
+    ids = [f"{run}/req-{i:02d}" for i in range(len(prompts))]
+    (ekv, estore), (ukv, ustore) = stores
+    groups, parked, woken = [], threading.Event(), []
+    orig_blpop = ekv.blpop
+
+    def blpop(key, timeout_s, **kw):  # the engine's idle wait, recorded
+        parked.set()
+        got = orig_blpop(key, timeout_s, **kw)
+        woken.append(got)
+        return got
+
+    ekv.blpop = blpop
+    engine.on_prefill = lambda group: groups.append(list(group))
+    for k in engine.stats:
+        engine.stats[k] = 0
+    n_a = WIRE_WAVES[0]
+    submitted, row, failed = {}, {"requests": len(ids)}, []
+
+    def submit(batch):
+        for r, p in batch:
+            submitted[r] = time.time()
+            rp.submit(ustore, ukv, r, p)
+
+    def driver():  # the user: waves, and the daemon's kill and restart
+        try:
+            done_keys = [rp.done_key(r) for r in ids[:n_a]]
+            deadline = time.monotonic() + CHILD_TIMEOUT_S
+            if daemon is not None:
+                while not ustore.exists_many(done_keys):
+                    check(time.monotonic() < deadline, "no result before the kill")
+                    time.sleep(0.005)
+                gens = len(ekv._client.generations)
+                t_kill = time.time()
+                daemon.kill()
+                daemon.start()
+                t_up = time.time()
+                while len(ekv._client.generations) == gens:
+                    check(time.monotonic() < deadline, "the engine's client never reconnected")
+                    time.sleep(0.001)
+                row.update(t_kill=t_kill, daemon_restart_s=t_up - t_kill,
+                           client_reconnect_s=time.time() - t_up)
+            while len(ustore.exists_many(done_keys)) < n_a:
+                check(time.monotonic() < deadline, "the first wave was not served")
+                time.sleep(0.01)
+            parked.clear()
+            check(parked.wait(30), "the engine never parked in blpop")
+            row["woken_from"] = len(woken)
+            submit(list(zip(ids[n_a:], prompts[n_a:])))
+        except BaseException as exc:  # surfaced by the caller after the run
+            failed.append(exc)
+
+    submit(list(zip(ids[:n_a], prompts[:n_a])))
+    helper = threading.Thread(target=driver)
+    t0 = time.perf_counter()
+    helper.start()
+    stats = engine.run(estore, ekv, engine_id="wire", idle_timeout_s=30.0,
+                       max_requests=len(ids))
+    wall = time.perf_counter() - t0
+    helper.join(timeout=CHILD_TIMEOUT_S)
+    ekv.blpop = orig_blpop
+    check(not failed and not helper.is_alive(), f"8a's user thread failed: {failed}")
+    res = rp.get_results(ustore, ids, timeout_s=30)
+    tokens = {r: res[r]["tokens"] for r in ids}
+    done = ustore.list(f"serve/done/{run}/")
+    check(sorted(done) == sorted(rp.done_key(r) for r in ids)
+          and stats["served"] == len(ids) and all(res[r]["engine"] == "wire" for r in ids),
+          f"{stats['served']} served, {len(done)} results for {len(ids)}")
+    check(woken[row["woken_from"]] == ids[n_a],
+          f"the parked blpop did not return {ids[n_a]}: {woken[row['woken_from']:][:4]}")
+    ttft = sorted(res[r]["t_first"] - submitted[r] for r in ids)
+    row.update(wall_s=wall, tokens_out=stats["tokens_out"],
+               tok_per_s=stats["tokens_out"] / wall, ttft_p50_s=float(np.median(ttft)),
+               prefill_groups=stats["prefill_groups"], decode_steps=stats["decode_steps"],
+               modelled_requests=sum(r.worker == "wire" for h in (ekv, estore)
+                                     for r in h.ledger.records()))
+    if "t_kill" in row:
+        row["kill_to_next_result_s"] = min(res[r]["t_done"] for r in ids
+                                           if res[r]["t_done"] > row["t_kill"]) - row["t_kill"]
+    if hasattr(ekv, "_client"):
+        clients = [ekv._client, estore.backend._client]
+        row.update(bytes_pickled=sum(c.bytes_pickled for c in clients),
+                   bytes_buffer=sum(c.bytes_buffer for c in clients),
+                   reconnects=ekv._client.reconnects,
+                   generations=len(ekv._client.generations))
+    number = {r: i for i, r in enumerate(ids)}
+    by_number = {number[r]: [number[x] for x in g] for g in groups for r in g}
+    return row, [tokens[r] for r in ids], by_number
+
+
+def phase_wire(torch, np, port, card, sort7b):
+    """8: the port's ``repro-kvd`` daemon (its CLI, on a Unix socket) on the
+    card's machine: 8a llama3-8b served over it (steady, then across a
+    SIGKILL), 8b 7b's terasort, 8c 7c's adoption with the adopter reaching
+    the stores through their net specs, 8d 7d's HOGWILD!.  -> 8a's kernel
+    launches (the in-memory reference run, the two wire runs)."""
+    import argparse
+    import contextlib
+    import gc
+    import pickle
+    import shutil
+    import tempfile
+
+    from repro_torch.core import WrenExecutor
+    from repro_torch.launch import serve as serve_cli
+
+    wrappers = {k: port["wrappers"][k] for k in ("decode_attention", "flash_attention")}
+    root = tempfile.mkdtemp(prefix="chip-smoke-wire-")
+    t_phase = time.perf_counter()
+    # both daemons start now, while the engine is built and serves in memory
+    daemons = [Daemon(f"{root}/{name}").spawn() for name in ("serve", "bsp")]
+    launches = {}
+    try:
+        # 8a: the engine of 6b's workers, in this process
+        t0 = time.perf_counter()
+        engine = serve_cli.build_engine(argparse.Namespace(**WIRE_ENGINE))
+        build_s = time.perf_counter() - t0
+        cfg = engine.cfg
+        rng = np.random.default_rng(0)
+        lens = [int(n) for n in rng.integers(16, 301, size=SHARED_REQUESTS)]
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+        reset_counters(wrappers)
+        kv, store = port["KVStore"](num_shards=KV_SHARDS), port["ObjectStore"]()
+        ref, ref_tokens, ref_groups = wire_serve_run(port, engine, ((kv, store), (kv, store)),
+                                                     "memory", prompts)
+        launches["llama3-8b-wire-reference"] = {k: fn.launches for k, fn in wrappers.items()}
+        reset_counters(wrappers)
+        runs = {}
+        d = daemons[0].listening()  # both runs, each its own requests
+        for name in ("steady", "kill"):
+            stores = (net_stores(d.address), net_stores(d.address))
+            try:
+                runs[name] = wire_serve_run(port, engine, stores, name, prompts,
+                                            daemon=d if name == "kill" else None)
+            finally:
+                for kv_, store_ in stores:
+                    kv_.close()
+                    store_.backend.close()
+        launches["llama3-8b-wire"] = {k: fn.launches for k, fn in wrappers.items()}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = {"phase": "wire_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+               "engine_build_s": build_s, "prompt_lens": lens, "waves": WIRE_WAVES,
+               "in_memory": ref, "launches": launches, "card": card}
+        for name, (r, tokens, groups) in runs.items():
+            same = [i for i in range(len(prompts)) if groups[i] == ref_groups[i]]
+            r.update(tokens_equal_to_in_memory=sum(t == u for t, u in zip(tokens, ref_tokens)),
+                     same_prefill_group=len(same),
+                     tokens_equal_where_group_same=sum(tokens[i] == ref_tokens[i] for i in same))
+            row[name] = r
+            check(all(tokens[i] == ref_tokens[i] for i in same),
+                  f"8a ({name}): tokens differ from the in-memory run's where the prefill "
+                  f"group was the same: {[i for i in same if tokens[i] != ref_tokens[i]]}")
+        row["kill"]["daemon_start_s"] = d.start_s
+        emit(row)
+        k = row["kill"]
+        check(k["reconnects"] >= 1 and k["generations"] == 2,
+              f"8a: the engine's client reconnected {k['reconnects']} times, "
+              f"{k['generations']} server generations seen")
+        check(row["steady"]["reconnects"] == 0, "8a: a reconnect with a steady daemon")
+        for name in wrappers:
+            check(launches["llama3-8b-wire"][name] > 0, f"{name} never launched in 8a")
+
+        # 8b: 7b's terasort over one daemon (8c and 8d reuse it)
+        d = daemons[1].listening()
+        kv, store = net_stores(d.address)
+        wex = WrenExecutor(store=store, kv=kv, num_workers=WC_WORKERS)
+        sort8b = run_terasort(kv, store, wex, "wire_terasort", card)
+        store.delete_many(store.list("sortin/") + store.list("sorted"))  # 8c's namespace
+        store.backend.close()
+        emit({"phase": "wire_terasort_vs_file", "MB_per_s": sort8b["MB_per_s"],
+              "file_MB_per_s": sort7b["MB_per_s"],
+              "hottest_shard_vtime_s": sort8b["hottest_shard_vtime_s"],
+              "file_hottest_shard_vtime_s": sort7b["hottest_shard_vtime_s"], "card": card})
+        check(sort8b["sorted_sha256"] == sort7b["sorted_sha256"],
+              "8b: the sorted partitions differ from 7b's")
+
+        # 8c: 7c over the daemon; both children rebuild the stores from specs
+        kv, store = net_stores(d.address)
+        adopted = run_adoption("net:" + pickle.dumps((kv, store)).hex(), "wire_adopt", card)
+        kv.close()
+        store.backend.close()
+        check(adopted["stores"] == ["NetKVStore", "NetBackend"]
+              and {"net_kv", "net_obj"} <= set(adopted["reconnected"]),
+              f"8c: the adopter reached {adopted['stores']} via {adopted['reconnected']}")
+
+        # 8d: 7d's HOGWILD!, the executor and the parameter server on the daemon
+        @contextlib.contextmanager
+        def wire_executor():
+            kv_, store_ = net_stores(d.address)
+            try:
+                with WrenExecutor(store=store_, kv=kv_, num_workers=6) as wex_:
+                    yield wex_
+            finally:
+                kv_.close()
+                store_.backend.close()
+
+        run_hogwild(wire_executor, "wire_hogwild", card)
+    finally:
+        for d in daemons:
+            d.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "wire", "wall_s": wall, "budget_s": WIRE_BUDGET_S,
+          "daemon_start_s": [s_ for d in daemons for s_ in d.start_s], "clock": "host",
+          "card": card})
+    check(wall <= WIRE_BUDGET_S, f"phase 8 took {wall:.1f} s of its {WIRE_BUDGET_S} s")
     return launches
 
 
@@ -2395,7 +2781,7 @@ def load_port():
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "child":  # phases 6a, 6c and 7c
+    if len(sys.argv) > 2 and sys.argv[1] == "child":  # phases 6a, 6c, 7c and 8c
         return child_main(sys.argv[2], sys.argv[3:])
     import numpy as np
     import torch
@@ -2450,7 +2836,7 @@ def main() -> int:
     for cfg, kernels, idle in (
         (CONFIGS["llama3-8b"], attention, ()),
         (CONFIGS["zamba2-1.2b"], (*attention, "ssd"), ()),
-        (CONFIGS["xlstm-1.3b"], ("mlstm",), ()),
+        (dataclasses.replace(CONFIGS["xlstm-1.3b"], n_layers=XLSTM_SERVE_LAYERS), ("mlstm",), ()),
         (CONFIGS["olmoe-1b-7b"], attention, ()),
         (deepseek, (), attention),  # MLA: Dv != D takes plain PyTorch by shape
     ):
@@ -2482,7 +2868,8 @@ def main() -> int:
         torch, np, port, dev, card, dataclasses.replace(llama, n_layers=ELASTIC_LAYERS))
     phase_launch_train(card, "llama3-8b")
     lap("5b elastic, launch.train")
-    launches["llama3-8b-train-consistency"] = phase_train_consistency(torch, np, port, dev, card)
+    launches["llama3-8b-train-consistency"] = phase_train_consistency(
+        torch, np, port, dev, card, n_layers=LLAMA_CONSISTENCY_LAYERS)
     lap("5c train consistency")
     xlstm_train = dataclasses.replace(CONFIGS["xlstm-1.3b"], n_layers=XLSTM_TRAIN_LAYERS)
     for cfg in (CONFIGS["zamba2-1.2b"], xlstm_train):  # phases 5d, 5e
@@ -2507,8 +2894,10 @@ def main() -> int:
     lap("6b two llama3-8b workers over shared roots")
     launches["llama3-8b-elastic-resume"] = phase_elastic_resume(torch, np, port, dev, card)
     lap("6c elastic resume from disk")
-    phase_bsp(card)
+    sort7b = phase_bsp(card)
     lap("7 BSP, MapReduce, terasort, the parameter server")
+    launches.update(phase_wire(torch, np, port, card, sort7b))
+    lap("8 the repro-kvd wire tier")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),

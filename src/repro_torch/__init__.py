@@ -13,7 +13,10 @@ Importing the package sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless the
 environment already names one: the elastic trainer's chunks run under
 ``torch.use_deterministic_algorithms(True)``, which on CUDA needs that
 workspace configuration, and PyTorch reads it once, before the process's
-first cuBLAS call.
+first cuBLAS call.  It does not import torch itself: the storage plane,
+the runtime (`core/`) and the request plane load without it, so a
+``repro-kvd`` daemon or a BSP worker process starts in a fraction of a
+second.
 """
 
 from __future__ import annotations
@@ -22,14 +25,14 @@ import os
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-import torch  # noqa: E402
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: ``cuda`` by default.
 
     Raises instead of quietly falling back to the CPU when CUDA is asked
     for and no GPU is present."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -35,15 +35,20 @@ Design:
 Port of `repro.core.ps`.  The runtime ships callables with the standard
 ``pickle``, so ``hogwild_sgd``'s task is a ``functools.partial`` of the
 module-level :func:`_hogwild_worker`, and the user's ``grad_fn`` must
-pickle by reference (a module-level function, or a partial of one).  The
-update functions ``push_delta`` hands ``eval_many`` are lambdas, as in the
-JAX package: the in-memory and file stores apply them in the calling
-process.  The int8 path draws from numpy's generator, as JAX's does, so it
-rounds the same way for the same ``rng``.
+pickle by reference (a module-level function, or a partial of one).  So
+do the update functions ``push_delta`` hands ``eval_many``, which a
+``repro-kvd`` daemon runs server-side: where the JAX package has the
+lambdas ``cur + c`` and ``int(v or 0) + 1``, the port sends
+``partial(operator.add, c)`` and ``partial(operator.add, 1)`` with
+``default=0`` (the same values: IEEE addition commutes), standard-library
+functions that a JAX daemon resolves as well as the port's.  The int8 path
+draws from numpy's generator, as JAX's does, so it rounds the same way for
+the same ``rng``.
 """
 
 from __future__ import annotations
 
+import operator
 import time
 import uuid
 from dataclasses import dataclass
@@ -56,6 +61,9 @@ from repro_torch.storage import KVStore
 
 from .futures import get_all
 from .wren import WrenExecutor
+
+
+_BUMP = partial(operator.add, 1)  # a version counter's increment
 
 
 def _quantize_int8(arr: np.ndarray, rng: np.random.Generator) -> Tuple[np.ndarray, float]:
@@ -183,12 +191,12 @@ class ParameterServer:
                 q, scale = _quantize_int8(chunk, rng)
                 chunk = _dequantize_int8(q, scale)
             # server-side range update (Redis EVAL analogue): atomic per block
-            block_updates[self._bkey(b)] = lambda cur, c=chunk: cur + c
-            version_bumps[self._vkey(b)] = lambda v: int(v or 0) + 1
+            block_updates[self._bkey(b)] = partial(operator.add, chunk)
+            version_bumps[self._vkey(b)] = _BUMP
             applied += 1
         if block_updates:
             self.kv.eval_many(block_updates, worker=worker)
-            self.kv.eval_many(version_bumps, worker=worker)
+            self.kv.eval_many(version_bumps, default=0, worker=worker)
         return applied
 
     def current(self, worker: str = "-") -> np.ndarray:

@@ -2,9 +2,8 @@
 (a copy of `repro.storage.object_store`, so that the port imports nothing of
 the JAX package).  ``FileBackend`` keeps the JAX package's directory layout,
 commit protocol and ``.watch-seq`` ledger frames, so a JAX process and a
-torch process can share one root.  The wire tier (``NetBackend``, the
-``repro-kvd`` server) is not ported yet: a reconnect spec of a net kind
-raises ``NotImplementedError``.
+torch process can share one root; the wire tier's ``NetBackend`` is in
+:mod:`.net_kv`.
 
 Semantics reproduced from the paper's use of S3:
   * whole-object atomic ``put`` / ``get`` (no partial writes ever visible);
@@ -128,11 +127,14 @@ def _reconnect(spec: Dict[str, Any]) -> Any:
             engine=spec.get("engine", "log"),
             fsync=spec.get("fsync", "auto"),
         )
-    elif spec["kind"] in ("net_kv", "net_obj", "net_object"):
-        raise NotImplementedError(
-            f"storage endpoint {spec!r}: the repro-kvd network tier (NetKVStore, "
-            "NetBackend) is not ported yet; it is the next storage slice"
-        )
+    elif spec["kind"] == "net_kv":
+        from .net_kv import NetKVStore  # local import: net_kv imports us
+
+        handle = NetKVStore(spec["addr"])
+    elif spec["kind"] == "net_obj":
+        from .net_kv import NetBackend  # local import: net_kv imports us
+
+        handle = ObjectStore(backend=NetBackend(spec["addr"]))
     else:
         raise RuntimeError(f"unknown storage endpoint spec {spec!r}")
     with _RECONNECT_LOCK:
@@ -147,8 +149,6 @@ def _resolve_handle(uid: str, spec: Optional[Dict[str, Any]] = None) -> Any:
     if spec is not None:
         try:
             return _reconnect(spec)
-        except NotImplementedError:
-            raise
         except Exception as e:
             raise RuntimeError(
                 f"storage handle {uid} not live in this process; reconnecting from "

@@ -25,10 +25,10 @@ import hashlib
 import io
 import pickle
 import struct
+import sys
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.util import tree_flatten, tree_unflatten
 
@@ -42,8 +42,18 @@ _LEN = struct.Struct("<Q")
 BF16 = "bfloat16"  # the dtype name a bf16 leaf is written under
 
 
-def dtype_name(dtype: torch.dtype) -> str:
+def _tensor_types() -> tuple:
+    """``(torch.Tensor,)`` once torch is loaded, else ``()``: a process that
+    never imported torch holds no tensor, and this module does not load it
+    (the storage plane runs without torch)."""
+    torch = sys.modules.get("torch")
+    return (torch.Tensor,) if torch is not None else ()
+
+
+def dtype_name(dtype: "torch.dtype") -> str:  # noqa: F821
     """The numpy dtype name a tensor of ``dtype`` is written under."""
+    import torch
+
     return BF16 if dtype == torch.bfloat16 else str(torch.empty((), dtype=dtype).numpy().dtype)
 
 
@@ -197,7 +207,7 @@ def _raw_blob(meta: bytes, arrays) -> bytes:
 
 def _array_leaves(value: Any):
     leaves, struct_ = tree_flatten(value)
-    if leaves and all(isinstance(l, (np.ndarray, np.generic, torch.Tensor)) for l in leaves):
+    if leaves and all(isinstance(l, (np.ndarray, np.generic, *_tensor_types())) for l in leaves):
         return leaves, struct_
     return None, None
 
@@ -206,7 +216,9 @@ def host_array(leaf: Any) -> Tuple[np.ndarray, str]:
     """(contiguous host numpy array, numpy dtype name) of an array or tensor
     leaf; a bf16 tensor becomes its ``uint16`` bits under the name
     ``bfloat16``."""
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, _tensor_types()):
+        import torch
+
         t = leaf.detach().to("cpu")
         if t.dtype == torch.bfloat16:
             return np.ascontiguousarray(t.view(torch.int16).numpy().view(np.uint16)), BF16
@@ -219,6 +231,8 @@ def from_host(buf: Any, dtype_name: str, shape) -> Any:
     """Inverse of :func:`host_array` over a bytes-like ``buf``: a numpy view,
     or a CPU bf16 tensor (a copy) for ``bfloat16``."""
     if dtype_name == BF16:
+        import torch
+
         bits = np.frombuffer(buf, dtype=np.uint16).reshape(shape)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
     return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)

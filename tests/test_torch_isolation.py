@@ -3,7 +3,9 @@ chip_smoke.py imports jax, the JAX package (`repro`) or cloudpickle (the
 card's machine has none; the port's runtime ships callables with the
 standard pickle), not even inside a function body, and importing the
 port's entry points, its runtime, data pipeline, trainer and storage plane
-(the file stores included) loads none of them."""
+(the file stores and the wire tier included) loads none of them, and
+neither does the ``repro-kvd`` daemon's CLI serving a client (which
+loads no torch either, with the runtime and the request plane)."""
 
 import ast
 import os
@@ -49,6 +51,7 @@ def test_port_entry_points_load_neither_jax_nor_repro():
         "import repro_torch.serve, repro_torch.launch.serve, repro_torch.kernels.ops\n"
         "import repro_torch.launch.train, repro_torch.train, repro_torch.core, repro_torch.data\n"
         "import repro_torch.storage, repro_torch.storage.file_kv, repro_torch.storage.inotify\n"
+        "import repro_torch.storage.net_kv, repro_torch.storage.net_server\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -57,3 +60,30 @@ def test_port_entry_points_load_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_daemons_cli_serving_a_client_loads_neither(tmp_path):
+    sock = str(tmp_path / "kvd.sock")
+    code = (
+        "import os, sys, threading, time\n"
+        "from repro_torch.storage import NetKVStore, net_server\n"
+        f"args = ['--root', {str(tmp_path / 'kvd')!r}, '--uds', {sock!r}, '--fsync', 'never']\n"
+        "threading.Thread(target=net_server.main, args=(args,), daemon=True).start()\n"
+        "deadline = time.monotonic() + 30\n"
+        f"while not os.path.exists({sock!r}) and time.monotonic() < deadline:\n"
+        "    time.sleep(0.01)\n"
+        f"kv = NetKVStore('unix:' + {sock!r})\n"
+        "kv.set('k', [1]); assert kv.get('k') == [1]\n"
+        "import repro_torch.core, repro_torch.serve.request_plane\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad, 'torch' in sys.modules)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LISTENING unix:" in proc.stdout
+    # nor torch: the daemon, the runtime and the request plane start without
+    # it (a restarted daemon is serving in a fraction of a second)
+    assert proc.stdout.strip().endswith("[] False"), proc.stdout

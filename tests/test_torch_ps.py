@@ -4,7 +4,10 @@ the int8 path rounds bit for bit as JAX's for the same generator, a pull is
 one batched ``mget``, a push lands every block before its version, the
 staleness bound rejects, and `tests/test_system.py`'s word count + PS
 pipeline runs on the port.  A ``grad_fn`` must pickle by reference: a
-nested one raises the port's ``TypeError``."""
+nested one raises the port's ``TypeError``.  Over the port's ``repro-kvd``
+daemon (in this process) the update functions run server-side: pushes
+stay bit-equal to JAX's lambdas in memory on every store, and HOGWILD!'s
+three configurations end on JAX's in-memory parameters."""
 
 import threading
 import time
@@ -30,7 +33,8 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core import ps  # noqa: E402
 from repro_torch.data import make_documents  # noqa: E402
-from repro_torch.storage import KVStore  # noqa: E402
+from repro_torch.storage import FileKVStore, KVStore, NetBackend, NetKVStore, ObjectStore  # noqa: E402
+from repro_torch.storage.net_server import KVDServer  # noqa: E402
 
 
 def _lsq_grad(w, shard):
@@ -157,3 +161,58 @@ def test_full_pipeline_wordcount_and_ps():
         server = ParameterServer(wex.kv, np.zeros(8), PSConfig(num_blocks=2))
         w = hogwild_sgd(wex, server, _lsq_grad, shards, steps_per_worker=40, lr=0.02)
         assert np.linalg.norm(w - true_w) < 0.2
+
+
+@pytest.fixture
+def daemon(tmp_path):
+    server = KVDServer(str(tmp_path / "kvd"), f"unix:{tmp_path / 'kvd.sock'}", num_shards=4,
+                       fsync="never").start()
+    yield server
+    server.close()
+
+
+@pytest.mark.parametrize("kind", ["memory", "file", "net"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_pushes_bit_equal_to_jax_lambdas_on_every_store(tmp_path, daemon, kind, int8):
+    """``push_delta``'s update functions (standard-library partials in the
+    port, lambdas in JAX) give the same bits in memory, on file roots and
+    run by the daemon."""
+    rng = np.random.default_rng(5)
+    delta = rng.normal(size=40).astype(np.float32)
+    kv = {"memory": lambda: KVStore(num_shards=2),
+          "file": lambda: FileKVStore(str(tmp_path / "kv"), num_shards=2, fsync="never"),
+          "net": lambda: NetKVStore(daemon.address)}[kind]()
+    params = []
+    for PS, Cfg, store in ((ParameterServer, PSConfig, kv), (JParameterServer, JPSConfig, JKVStore(num_shards=2))):
+        server = PS(store, np.zeros(40), Cfg(num_blocks=4, compress_int8=int8))
+        assert server.push_delta(delta, rng=np.random.default_rng(3)) == 4
+        assert server.push_delta(-0.5 * delta, rng=np.random.default_rng(4)) == 4
+        params.append(server.pull())
+    assert params[0][0].dtype == params[1][0].dtype and np.array_equal(params[0][0], params[1][0])
+    assert params[0][1] == params[1][1] == [2] * 4
+    if kind != "memory":
+        kv.close()
+
+
+@pytest.mark.parametrize("cfg", [dict(num_blocks=4), dict(num_blocks=3, max_staleness=2),
+                                 dict(num_blocks=4, compress_int8=True)],
+                         ids=["hogwild", "staleness<=2", "int8"])
+def test_hogwild_over_the_ports_daemon_ends_on_jax_in_memory_parameters(daemon, cfg):
+    """The runtime and the parameter server both on the daemon, one worker
+    (sequential, so both packages take the same steps): within 1e-6 of
+    JAX's in-memory run."""
+    w_true, shards = _shards(1)
+    kv = NetKVStore(daemon.address)
+    store = ObjectStore(backend=NetBackend(daemon.address))
+    try:
+        with WrenExecutor(store=store, kv=kv, num_workers=1) as wex:
+            server = ParameterServer(kv, np.zeros(16), PSConfig(**cfg))
+            w = hogwild_sgd(wex, server, _lsq_grad, shards, steps_per_worker=30, lr=0.01)
+    finally:
+        kv.close()
+        store.backend.close()
+    with JWrenExecutor(num_workers=1) as jwex:
+        jserver = JParameterServer(JKVStore(num_shards=4), np.zeros(16), JPSConfig(**cfg))
+        jw = jhogwild_sgd(jwex, jserver, _lsq_grad, shards, steps_per_worker=30, lr=0.01)
+    np.testing.assert_allclose(w, jw, rtol=0, atol=1e-6)
+    assert np.linalg.norm(w - w_true) < np.linalg.norm(w_true)

@@ -509,6 +509,7 @@ def test_log_and_snapshot_engines_agree_and_price_their_bytes(tmp_path):
         kv.setnx("nx", 9, worker="t")
         assert kv.lpop_n("q", 5) == [2, 3]
         kv.mset(resident, worker="t")
+        kv.compact_now()  # the compaction this mset flagged lands before the window
         mark = kv.disk_bytes_written()
         for i in range(20):
             kv.set("hot", i, worker="t")
@@ -673,8 +674,9 @@ def test_unreachable_handles_say_why():
         tos._resolve_handle(uid)
     with pytest.raises(RuntimeError, match="'kind': 'object'.*failed"):
         tos._resolve_handle(uid, {"kind": "object", "root": "/dev/null/x"})
-    for kind in ("net_kv", "net_obj"):
-        with pytest.raises(NotImplementedError, match="network tier"):
+    for kind in ("net_kv", "net_obj"):  # the wire tier: no daemon at the address
+        with pytest.raises(RuntimeError, match=f"'kind': '{kind}'.*failed: repro-kvd at "
+                                               "unix:/nowhere.* unreachable"):
             tos._resolve_handle(uid, {"kind": kind, "addr": "unix:/nowhere"})
     mem = pickle.dumps(ObjectStore())
     code = f"import pickle; pickle.loads(bytes.fromhex({mem.hex()!r}))"
