@@ -44,8 +44,9 @@ script exits non-zero:
    mLSTM + 1 sLSTM) the same way; the mlstm counter > 0 during
    this phase; then its decode-step profile, whose least step time counts
    the recurrent state read and written beside the weights;
-3d. serve: olmoe-1b-7b at full width (16 MoE layers of 64 experts, top-8,
-   MHA 16 x 128 with qk-norm) the same way; the decode and flash counters
+3d. serve: olmoe-1b-7b at full width (64 experts, top-8, MHA 16 x 128
+   with qk-norm) cut in depth to ``OLMOE_SERVE_LAYERS`` = 8 of its 16 MoE
+   layers, the same way; the decode and flash counters
    > 0 during this phase (flash all on its tensor-core route); then its
    profiles;
 3e. serve: deepseek-v3-671b at full width (d_model 7168, 128 heads, MLA,
@@ -96,13 +97,13 @@ script exits non-zero:
    remat recompute) all on the tensor-core route, peak memory under 75 GB;
    step time, tokens/s, the device-busy share, the flash forward's device
    time against the plain attention backward's;
-5b. elastic: llama3-8b width cut to 2 layers through ``train_elastic`` on
+5b. elastic: llama3-8b width cut to 1 layer through ``train_elastic`` on
    ``WrenExecutor(num_workers=2)`` over the in-memory store (int8 moments,
    fused CE, 2 steps per chunk, 6 steps scaled to 3 workers at chunk 1,
    then a resume to 8): versions 3 then 4, a warm start, and chunk 0 run
    again after the warm cache is cleared and v1 deleted writes the same
-   leaf bytes; then ``python -m repro_torch.launch.train --arch llama3-8b
-   --reduced --steps 4 --steps-per-chunk 2`` on the card;
+   leaf bytes; ``python -m repro_torch.launch.train --arch llama3-8b
+   --reduced --steps 4 --steps-per-chunk 2`` runs at 5e;
 5c. train consistency: llama3-8b width at 1 layer in fp32 (TF32 off), one
    batch of 128 tokens, the loss and gradients on the card against the CPU,
    then the int8 optimizer given the same gradients on both devices;
@@ -123,8 +124,9 @@ script exits non-zero:
    cut to 4 x 512 tokens (``TRAIN_SHAPE``: the sLSTM loop's time); the
    device ms of the plain mLSTM backward and the sLSTM blocks' share of
    each step on the host clock; then ``python -m repro_torch.launch.train
-   --arch xlstm-1.3b --reduced`` and ``--arch zamba2-1.2b --reduced`` (the
-   reduced hybrid, P = N = 16) on the card;
+   --reduced`` for llama3-8b (5b's), xlstm-1.3b and zamba2-1.2b (the
+   reduced hybrid, P = N = 16) on the card, the three processes started
+   together;
 5f. train consistency as in 5c for zamba2 width at 7 layers (one super
    block of 6 Mamba layers with the shared block, one tail layer) and
    xlstm width at 8 (7 mLSTM + 1 sLSTM), the fp32 kernels launched as the
@@ -151,7 +153,7 @@ script exits non-zero:
    tokens must be equal for every request prefilled in the same group in
    both runs, and the others are counted; each worker's kernel launches
    (its ``launches`` line);
-6c. elastic resume: llama3-8b width cut to 2 layers (bf16, int8 moments, 2
+6c. elastic resume: llama3-8b width cut to 1 layer (bf16, int8 moments, 2
    x 512 tokens, 2 steps a chunk): 2 chunks on a ``FileBackend`` root
    here, then the third twice, here from the state in memory (the
    uninterrupted run) and in a fresh process from the root, whose losses
@@ -162,7 +164,7 @@ script exits non-zero:
    4-shard ``FileKVStore`` in a temp dir), host only (no kernel runs), in
    at most ``BSP_BUDGET_S`` = 120 s: 7a word count over ``make_documents``
    in 333 partitions (about 50 MB of text), 8 workers, equal to an
-   in-process ``Counter``; 7b terasort of 10^6 100-byte records in 20
+   in-process ``Counter``; 7b terasort of 5 x 10^5 100-byte records in 20
    objects -> 20 partitions, intermediates on the KV: sorted, 400
    intermediate objects, none left after the merge; 7c a sort driver
    process SIGKILLed between partition and merge, adopted by a fresh
@@ -192,6 +194,27 @@ script exits non-zero:
    stores from their ``net_kv`` / ``net_obj`` specs; 8d 7d's HOGWILD!
    with the executor and the parameter server on one daemon, in 7d's
    bands.  No fallback: a daemon that does not start fails the phase.
+9. sharded execution, in at most ``DIST_BUDGET_S`` = 45 s: a (1, 1)
+   ``DeviceMesh`` ("data", "model") over NCCL, world size 1 (the process
+   group from a ``HashStore``, torn down at the end), parameters, caches,
+   batch and train state placed by the port's rules
+   (`repro_torch.models.sharding`, `repro_torch.launch.shardings`), the
+   models run under ``use_mesh`` and each kernel reached on the local
+   shards through ``local_map``; 9a llama3-8b at full width, 2 layers,
+   fp32 (TF32 off): prefill of two prompts of 64 tokens and 4 greedy decode
+   steps against the same run on plain tensors (identical tokens, logits
+   within 2e-5), the flash and decode counters > 0, then one train step
+   (finite loss, every leaf's gradient nonzero, flash launched); 9b
+   zamba2-1.2b at full width, one period (6 Mamba2 layers and the shared
+   block), the same serving checks with the ssd counter > 0, then one
+   ``ops.mlstm_parallel`` on DTensors at xlstm-1.3b's shape (1 x 300, 4
+   heads of 1024, bf16), bit-equal to the call on plain tensors, the mlstm
+   counter > 0; each ``dist_*`` line with its seconds and the card's name
+   and power limit.
+
+``python3 chip_smoke.py serve-ab ROOT`` runs no phase: it times phase
+3's llama3-8b decode step on this tree against the tree at ROOT (the
+parent commit unpacked with ``git archive``), alternating fresh processes.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving and training phase, error and
@@ -205,6 +228,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -222,6 +246,7 @@ SSD_STATE_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:167
 MLSTM_F32_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_kernels.py:242
 SUBMIT_GAP_S = 0.15  # phase 3: one request every 150 ms
 DEEPSEEK_SERVE_LAYERS = 4  # phase 3e: the 3 dense MLA layers + 1 MoE layer (31.6 GB in bf16)
+OLMOE_SERVE_LAYERS = 8  # phase 3d: 8 of 16 MoE layers (16 until PR 24; 37.7-46.9 s there)
 # phases 3c and 5c cut in depth so that phases 6-8 fit the script's time
 # limit: xlstm-1.3b serves 2 of its 6 groups (its sLSTM loop grows with the
 # depth; 3c took 55.1-60.4 s at 48 blocks), and the card-against-CPU train
@@ -1185,9 +1210,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3  # phases 5a, 5d, 5e
 # 2048 tokens of a step
 TRAIN_SHAPE = {"xlstm-1.3b": (4, 512)}
 MLSTM_TRAIN_CASE = "train-%dx%d" % TRAIN_SHAPE["xlstm-1.3b"]  # phase 2's row at 5e's shape
-# phase 5b: llama3-8b width cut to 2 layers, 1.487 B parameters (4 layers
-# until phase 6 needed the time)
-ELASTIC_LAYERS, ELASTIC_SEQ = 2, 512
+# phase 5b: llama3-8b width cut to 1 layer (4 layers until phase 6 needed
+# the time, 2 until the script took 1288.0 s in PR 24's proof run)
+ELASTIC_LAYERS, ELASTIC_SEQ = 1, 512
 # phase 5e: xlstm-1.3b cut to 1 of its 6 groups (7 mLSTM + 1 sLSTM blocks)
 # to fit phases 6-8 in the time limit: the sLSTM loop and the summary of its
 # profiled step grow with the depth (5e took 207.9-245.6 s at 48 blocks,
@@ -1540,19 +1565,38 @@ def phase_elastic(torch, np, port, dev, card, cfg):
     return launches
 
 
-def phase_launch_train(card, arch):
+def phase_launch_train(card, archs):
     """``python -m repro_torch.launch.train --arch <arch> --reduced`` on the
-    card."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-           "--reduced", "--steps", "4", "--steps-per-chunk", "2"]
+    card for each of ``archs``, the processes started together (each is
+    mostly process and worker start-up on the host)."""
+    import tempfile
+
     env = dict(__import__("os").environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
-    lines = proc.stdout.strip().splitlines()
-    emit({"phase": "launch_train", "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
-          "wall_s": time.perf_counter() - t0, "stdout": lines[-3:], "card": card})
-    check(proc.returncode == 0, f"launch.train --arch {arch} failed: {proc.stderr[-2000:]}")
-    check(bool(lines) and lines[-1].endswith("checkpoint v2"), f"launch.train printed {lines}")
+    runs = []
+    try:
+        for arch in archs:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                   "--reduced", "--steps", "4", "--steps-per-chunk", "2"]
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            runs.append((arch, cmd, subprocess.Popen(cmd, stdout=out, stderr=err, env=env),
+                         out, err))
+        for arch, cmd, proc, out, err in runs:
+            proc.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            emit({"phase": "launch_train", "cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+                  "wall_s": time.perf_counter() - t0, "stdout": lines[-3:], "card": card})
+            check(proc.returncode == 0, f"launch.train --arch {arch} failed: {err.read()[-2000:]}")
+            check(bool(lines) and lines[-1].endswith("checkpoint v2"), f"launch.train printed {lines}")
+    finally:
+        for _, _, proc, out, err in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
 
 
 def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_layers=2, seq=128):
@@ -1633,7 +1677,9 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
 
 WC_DOCS, WC_LINES = 333, 3300  # 7a: the paper's 333 partitions, about 50 MB of text
 WC_WORKERS, WC_REDUCERS = 8, 8
-SORT_RECORDS, SORT_FILES = 10 ** 6, 20  # 7b: 100 MB of 100-byte records -> 20 partitions
+# 7b (and 8b): 50 MB of 100-byte records -> 20 partitions (100 MB until the
+# script took 1288.0 s in PR 24's proof run: 7b 28.7 s, 8b 46.6 s there)
+SORT_RECORDS, SORT_FILES = 5 * 10 ** 5, 20
 ADOPT_RECORDS, ADOPT_FILES = 10 ** 5, 10  # 7c: the SIGKILLed driver's job
 KV_SHARDS = 4
 PS_DIM, PS_SHARDS, PS_ROWS, PS_STEPS = 64, 8, 128, 60  # 7d: as examples/hogwild_ps.py
@@ -1822,11 +1868,14 @@ def run_hogwild(make_executor, phase, card):
             t0 = time.perf_counter()
             w = hogwild_sgd(wex, server, ps_grad, shards, steps_per_worker=PS_STEPS, lr=0.01)
             wall = time.perf_counter() - t0
+            # a straggler's speculative copy may still be running when the
+            # job returns: stopping the pool lets it finish its steps
+            # (HOGWILD! takes its pushes), so the pushes and the attempts
+            # that ran are counted together
+            wex.shutdown()
             applied = sum(int(v) for v in wex.kv.mget(
                 [server._vkey(b) for b in range(cfg.num_blocks)]))
             recs = [r for r in wex.kv.ledger.records() if r.worker.startswith("psw")]
-            # a straggler's speculative copy runs its steps too (HOGWILD!
-            # takes its pushes), so count the attempts that ran
             attempts = sum(st.tasks_ok + st.tasks_superseded
                            for st in wex.pool.stats().values())
         loss0, loss1 = _ps_loss(np.zeros(PS_DIM), shards), _ps_loss(w, shards)
@@ -1919,7 +1968,9 @@ SHARED_REQUESTS = 16  # phase 6b: requests per run, prompts of 16-300 tokens
 # outlast a dead peer's lease (2 s) and one reap period (2 s) or the
 # survivor leaves before it can re-serve the victim's requests
 WORKER_IDLE_S = 5
-RESUME_LAYERS, RESUME_SEQ = 2, 512  # phase 6c: llama3-8b width, 2 x 512 tokens a step
+# phase 6c: llama3-8b width at 1 layer (2 until PR 24, for the script's
+# time), 2 x 512 tokens a step
+RESUME_LAYERS, RESUME_SEQ = 1, 512
 CHILD_TIMEOUT_S = 300
 
 
@@ -2739,6 +2790,226 @@ def phase_wire(torch, np, port, card, sort7b):
     check(wall <= WIRE_BUDGET_S, f"phase 8 took {wall:.1f} s of its {WIRE_BUDGET_S} s")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 9: sharded execution on a one-card NCCL mesh
+# ---------------------------------------------------------------------------
+
+DIST_BUDGET_S = 45  # phase 9's wall time, all three parts
+DIST_PROMPT, DIST_STEPS, DIST_MAX_LEN = 64, 4, 128  # two prompts, greedy decode steps
+DIST_TOL = 2e-5  # the fp32 attention bar of tests/test_kernels.py
+
+
+def full_tensor(x):
+    """A DTensor's whole value; a tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def dist_generate(torch, port, cfg, params, cache, prompts, ctx):
+    """Prefill ``prompts`` then ``DIST_STEPS`` greedy steps under ``ctx``
+    -> (tokens (steps + 1, B), last-position logits (steps + 1, B, V)),
+    DTensor outputs gathered."""
+    toks, logits = [], []
+    with torch.no_grad(), ctx:
+        out, cache, n = port["prefill"](params, cfg, {"tokens": prompts}, cache)
+        for i in range(DIST_STEPS + 1):
+            logits.append(full_tensor(out[:, -1]))
+            toks.append(logits[-1].argmax(-1))
+            if i < DIST_STEPS:
+                out, cache = port["decode_step"](params, cfg, toks[-1][:, None], cache, n + i)
+    return torch.stack(toks), torch.stack(logits)
+
+
+def dist_serve_check(torch, port, dev, smi, mesh, cfg, kernels):
+    """9a/9b's serving half: ``cfg`` in fp32 on the card, prefill of two
+    prompts and ``DIST_STEPS`` greedy steps with parameters and caches
+    placed on ``mesh`` by the port's rules, against the same run on plain
+    tensors; ``kernels``' counters > 0 in the sharded run.  -> (the row,
+    the sharded parameters)."""
+    import contextlib
+
+    from repro_torch.launch.shardings import cache_pspec, to_shardings
+    from repro_torch.models.sharding import distribute, param_sharding, use_mesh
+
+    t0 = time.perf_counter()
+    params = port["init_params"](cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, DIST_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(2))
+    cache = port["init_cache"](cfg, 2, DIST_MAX_LEN, torch.float32, dev)
+    ref_toks, ref_logits = dist_generate(torch, port, cfg, params, cache, prompts,
+                                         contextlib.nullcontext())
+    sp = distribute(params, param_sharding(mesh, params))
+    cache = port["init_cache"](cfg, 2, DIST_MAX_LEN, torch.float32, dev)
+    scache = distribute(cache, to_shardings(mesh, cache_pspec(mesh, cfg, cache)))
+    wrappers = port["wrappers"]
+    reset_counters(wrappers)
+    toks, logits = dist_generate(torch, port, cfg, sp, scache, prompts, use_mesh(mesh))
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    err = (logits - ref_logits).abs().max().item()
+    same = bool(torch.equal(toks, ref_toks))
+    row = {
+        "phase": f"dist_{cfg.name}", "n_layers": cfg.n_layers, "dtype": "float32",
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "backend": torch.distributed.get_backend(),
+        "prompts": [2, DIST_PROMPT], "decode_steps": DIST_STEPS,
+        "tokens_identical": same, "max_abs_logit_err": err, "tol": DIST_TOL,
+        "launches": launches, "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+    }
+    check(same, f"{cfg.name} on the mesh: greedy tokens differ from the plain-tensor run")
+    check(err <= DIST_TOL, f"{cfg.name} on the mesh: logits differ by {err} > {DIST_TOL}")
+    for name in kernels:
+        check(launches[name] > 0, f"{cfg.name} on the mesh: {name} never launched")
+    del params, cache, scache
+    return row, sp, launches
+
+
+def phase_dist(torch, port, dev, smi):
+    """9: sharded execution on a (1, 1) ``DeviceMesh`` ("data", "model")
+    over NCCL, world size 1, from a ``HashStore``.  9a llama3-8b at full
+    width, 2 layers, fp32: prefill, decode, and one train step (finite
+    loss, every leaf's gradient nonzero) with the state placed by
+    ``state_pspec``; 9b zamba2-1.2b at full width, one period, the same
+    serving checks; then ``ops.mlstm_parallel`` on DTensors at xlstm-1.3b's
+    shape, bit-equal to the call on plain tensors.  -> the launches of
+    each part."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import batch_pspec, state_pspec, to_shardings
+    from repro_torch.models.sharding import distribute, placements, use_mesh
+
+    t_phase = time.perf_counter()
+    CONFIGS, ts = port["CONFIGS"], port["train_step"]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    launches = {}
+    try:
+        mesh = make_mesh(1, 1, device=dev.type)
+        # 9a: serving, then one train step on the same sharded parameters
+        llama = dataclasses.replace(CONFIGS["llama3-8b"], n_layers=2, dtype="float32",
+                                    param_dtype="float32")
+        row, sp, launches["dist-llama3-8b"] = dist_serve_check(
+            torch, port, dev, smi, mesh, llama, ("flash_attention", "decode_attention"))
+        t0 = time.perf_counter()
+        opt = port["train"].adamw(1e-4)
+        state = port["train"].TrainState(sp, opt.init(sp))
+        state = distribute(state, to_shardings(mesh, state_pspec(mesh, state)))
+        dcfg = port["DataConfig"](seq_len=DIST_PROMPT, global_batch=2, vocab_size=llama.vocab_size)
+        batch = {k: v.to(dev) for k, v in port["synthetic_batch"](dcfg, 0, llama).items()}
+        batch = distribute(batch, to_shardings(mesh, batch_pspec(mesh, batch)))
+        reset_counters(port["wrappers"])
+        with use_mesh(mesh):
+            grads, _ = ts.grad_fn(ts.make_loss_fn(llama), state.params, batch)
+            zero = [i for i, g in enumerate(grads) if not bool((g.to_local() != 0).any())]
+            del grads
+            state, metrics = ts.make_train_step(llama, opt, inplace=True)(state, batch)
+            loss = float(full_tensor(metrics["loss"]))
+        train_flash = port["wrappers"]["flash_attention"].launches
+        launches["dist-llama3-8b"]["flash_attention"] += train_flash
+        row.update(train_loss=loss, train_zero_grad_leaves=zero, train_flash_launches=train_flash,
+                   train_seconds=time.perf_counter() - t0)
+        emit(row)
+        check(math.isfinite(loss), f"the sharded train step's loss is {loss}")
+        check(not zero, f"the sharded train step left leaves {zero} without a gradient")
+        check(train_flash > 0, "the sharded train step never launched flash attention")
+        del state, sp, batch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # 9b: zamba2, one period (shared_attn_every Mamba2 layers and the shared block)
+        zamba = CONFIGS["zamba2-1.2b"]
+        zamba = dataclasses.replace(zamba, n_layers=zamba.shared_attn_every, dtype="float32",
+                                    param_dtype="float32")
+        row, sp, launches["dist-zamba2-1.2b"] = dist_serve_check(
+            torch, port, dev, smi, mesh, zamba, ("ssd", "flash_attention", "decode_attention"))
+        emit(row)
+        del sp
+        # 9b: one mLSTM call on DTensors at xlstm-1.3b's prefill shape, bf16
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(3)
+        B, S, H, D = 1, 300, 4, 1024
+        qkv = [torch.randn((B, S, H, D), device=dev, generator=g).to(torch.bfloat16)
+               for _ in range(3)]
+        gates = [torch.randn((B, S, H), device=dev, generator=g) for _ in range(2)]
+        exp = ops.mlstm_parallel(*qkv, *gates)
+        from torch.distributed.tensor import distribute_tensor
+
+        # batch over dp, heads over tp: (B, S, H, D) and (B, S, H)
+        dts = [distribute_tensor(t, mesh, placements(mesh, ("data", None, "model", None)[:t.dim()]),
+                                 src_data_rank=None) for t in (*qkv, *gates)]
+        reset_counters(port["wrappers"])
+        with use_mesh(mesh):
+            out = ops.mlstm_parallel(*dts).full_tensor()
+        n = port["wrappers"]["mlstm"].launches
+        launches["dist-xlstm-1.3b-mlstm"] = {"mlstm": n}
+        equal = bool(torch.equal(out, exp))
+        emit({"phase": "dist_mlstm", "shape": [B, S, H, D], "dtype": "bfloat16",
+              "bit_equal": equal, "launches": n, "seconds": time.perf_counter() - t0,
+              "nvidia_smi": smi})
+        check(equal, "mlstm on DTensors differs from the call on plain tensors")
+        check(n > 0, "mlstm on DTensors never launched the kernel")
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "dist", "wall_s": wall, "budget_s": DIST_BUDGET_S, "clock": "host",
+          "nvidia_smi": smi})
+    check(wall <= DIST_BUDGET_S, f"phase 9 took {wall:.1f} s of its {DIST_BUDGET_S} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the no-mesh serving path against another tree (not a phase)
+# ---------------------------------------------------------------------------
+
+def serve_profile(root) -> int:
+    """``python3 chip_smoke.py serve-profile ROOT``: phase 3's llama3-8b
+    serve and decode-step profile, run by the ``chip_smoke.py`` of the tree
+    at ROOT on that tree's port (kernels built first)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", Path(root) / "chip_smoke.py")
+    tree = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tree)
+    port = tree.load_port()
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    tree.phase_serve(torch, np, port, torch.device("cuda", 0), torch.cuda.get_device_name(0),
+                     port["CONFIGS"]["llama3-8b"], ("decode_attention", "flash_attention"))
+    return 0
+
+
+def serve_ab(other_root, reps: int = 2) -> int:
+    """``python3 chip_smoke.py serve-ab ROOT``: the decode step of phase 3's
+    llama3-8b serve (no mesh) on this tree against the tree at ROOT (the
+    parent commit, unpacked with ``git archive``), each in a fresh process,
+    in the order ROOT, this, this, ROOT (``reps`` times); prints each
+    run's ``serve_profile`` row, then the card's name and power limit and
+    each side's step times and median."""
+    import statistics
+
+    here, other = Path(__file__).resolve().parent, Path(other_root).resolve()
+    steps = {"other": [], "this": []}
+    for side in ["other", "this", "this", "other"] * reps:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "serve-profile",
+                              str(other if side == "other" else here)],
+                             capture_output=True, text=True, check=True, timeout=600).stdout
+        row = next(json.loads(line) for line in out.splitlines()
+                   if line.startswith("{") and '"serve_profile"' in line)
+        emit({"side": side, **row})
+        steps[side].append(row["step_ms"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit({"serve_ab": str(other), "nvidia_smi": smi, "step_ms": steps,
+          "median_ms": {k: statistics.median(v) for k, v in steps.items()}})
+    return 0
+
 
 def load_port():
     """The port's modules and functions the phases use, by name."""
@@ -2783,6 +3054,10 @@ def load_port():
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "child":  # phases 6a, 6c, 7c and 8c
         return child_main(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 2 and sys.argv[1] == "serve-profile":
+        return serve_profile(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == "serve-ab":
+        return serve_ab(sys.argv[2])
     import numpy as np
     import torch
 
@@ -2837,7 +3112,7 @@ def main() -> int:
         (CONFIGS["llama3-8b"], attention, ()),
         (CONFIGS["zamba2-1.2b"], (*attention, "ssd"), ()),
         (dataclasses.replace(CONFIGS["xlstm-1.3b"], n_layers=XLSTM_SERVE_LAYERS), ("mlstm",), ()),
-        (CONFIGS["olmoe-1b-7b"], attention, ()),
+        (dataclasses.replace(CONFIGS["olmoe-1b-7b"], n_layers=OLMOE_SERVE_LAYERS), attention, ()),
         (deepseek, (), attention),  # MLA: Dv != D takes plain PyTorch by shape
     ):
         launches[cfg.name] = phase_serve(torch, np, port, dev, card, cfg, kernels, idle)
@@ -2866,8 +3141,7 @@ def main() -> int:
     lap("5a llama3-8b train")
     launches["llama3-8b-elastic"] = phase_elastic(
         torch, np, port, dev, card, dataclasses.replace(llama, n_layers=ELASTIC_LAYERS))
-    phase_launch_train(card, "llama3-8b")
-    lap("5b elastic, launch.train")
+    lap("5b elastic")
     launches["llama3-8b-train-consistency"] = phase_train_consistency(
         torch, np, port, dev, card, n_layers=LLAMA_CONSISTENCY_LAYERS)
     lap("5c train consistency")
@@ -2875,9 +3149,9 @@ def main() -> int:
     for cfg in (CONFIGS["zamba2-1.2b"], xlstm_train):  # phases 5d, 5e
         launches[f"{cfg.name}-train"] = phase_train_step(torch, np, port, dev, card, cfg)
         lap(f"5d/5e {cfg.name} train")
-    phase_launch_train(card, "xlstm-1.3b")
-    phase_launch_train(card, "zamba2-1.2b")  # the reduced hybrid: P = N = 16
-    lap("5e launch.train xlstm-1.3b, zamba2-1.2b")
+    # 5b's and 5e's launch.train runs, together (the reduced hybrid: P = N = 16)
+    phase_launch_train(card, ("llama3-8b", "xlstm-1.3b", "zamba2-1.2b"))
+    lap("5b/5e launch.train llama3-8b, xlstm-1.3b, zamba2-1.2b")
     # phase 5f: one super block of 6 Mamba layers + the shared block + 1
     # tail layer; one group of 7 mLSTM blocks + 1 sLSTM block
     for arch, n in (("zamba2-1.2b", 7), ("xlstm-1.3b", 8)):
@@ -2898,6 +3172,8 @@ def main() -> int:
     lap("7 BSP, MapReduce, terasort, the parameter server")
     launches.update(phase_wire(torch, np, port, card, sort7b))
     lap("8 the repro-kvd wire tier")
+    launches.update(phase_dist(torch, port, dev, smi))
+    lap("9 sharded execution on a one-card mesh")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),

@@ -17,6 +17,12 @@ only (a ``return_state`` request raises); decode attention and the
 wrappers called directly raise under autograd.  On the CPU the plain
 versions are differentiable as they stand.
 
+DTensor inputs (a sharded run, `models.sharding`) run each kernel, or on a
+CPU shard its plain version, on every rank's local shards through
+``local_map`` (`_local_launch` says which placements stay local): the
+CUDA wrappers take raw pointers, so a DTensor never reaches them, and a
+DTensor on the card never takes the plain version.
+
 Attention whose value head dim differs from the query's (MLA: Dqk 192,
 Dv 128) is sent to plain PyTorch by shape on every device, as the JAX
 dispatch sends it to its jnp paths: the naive reference up to Sq * Sk <=
@@ -33,9 +39,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.util import is_dtensor
+
 from . import ref
 from ._build import PlainBackwardFn
-from .decode_attention import decode_attention
+from .decode_attention import decode_attention as decode_attention_kernel
 from .flash_attention import flash_attention as flash_attention_kernel
 from .flash_attention import flash_attention_plain
 from .mamba2_ssd import ssd as ssd_kernel
@@ -58,10 +66,106 @@ def _grad_on_card(*tensors) -> bool:
             and any(t is not None and t.requires_grad for t in tensors))
 
 
-def _launch(kernel, plain, kw, *tensors):
+# The role of each dim of each kernel's inputs and outputs, as
+# `_local_launch` reads them: "b" batch, "h" heads, "g" grouped heads
+# (attention's KV heads, the SSD's B/C groups: head i reads group
+# i // (H / G)); None is a dim the kernel reduces over or runs along.
+_BSHD = ("b", None, "h", None)
+_BSGD = ("b", None, "g", None)
+_BSH = ("b", None, "h")
+_ROLES = {
+    "flash_attention": ((_BSHD, _BSGD, _BSGD), (_BSHD,)),
+    "decode_attention": ((("b", "h", None), _BSGD, _BSGD, ("b",)), (("b", "h", None),)),
+    "ssd": ((_BSHD, _BSH, ("h",), _BSGD, _BSGD, ("h",)), (_BSHD, ("b", "h", None, None))),
+    "mlstm": ((_BSHD, _BSHD, _BSHD, _BSH, _BSH), (_BSHD,)),
+    "ssd_decode_step": ((("b", "h", None, None), ("b", "h", None), ("b", "h"), ("h",),
+                         ("b", "g", None), ("b", "g", None), ("h",)),
+                        (("b", "h", None, None), ("b", "h", None))),
+}
+
+
+def _local_launch(call, name: str, tensors, n_out: int = 1):
+    """``call(*tensors)`` on each rank's local shards through ``local_map``,
+    for inputs that are DTensors, so each kernel runs on its shard as it
+    runs on one card.
+
+    The first input (q, x) decides what stays split: batch over the mesh
+    dims that shard its batch, heads over those that shard its heads
+    (where they divide every input's dim of that role).  Grouped heads
+    split with the heads where the mesh divides them; where it does not
+    but each rank's heads read one group (GQA with tp above the KV heads)
+    they stay whole and each rank takes its own group in the local call.
+    Every other dim is replicated first by ``local_map``'s redistribution:
+    attention's Sq and Sk, a sequence-sharded decode cache, the SSD's and
+    the mLSTM's sequence (each kernel reduces or scans along it), and any
+    partial sum.  An input whole along a split it does not take (the SSD's
+    A and D under a batch split, a group taken per rank) gets a partial
+    gradient from each rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    in_roles, out_roles = _ROLES[name]
+    present = [i for i, t in enumerate(tensors) if t is not None]
+    mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+    rep = [Replicate()] * mesh.ndim
+    args = [t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, rep, run_check=False)
+            for t in (tensors[i] for i in present)]
+    roles = [in_roles[i] for i in present]
+
+    lead, lead_roles = args[0], roles[0]
+    split = {m: lead_roles[p.dim] for m, p in enumerate(lead.placements)
+             if isinstance(p, Shard) and lead_roles[p.dim] in ("b", "h")}
+
+    def ways(role) -> int:
+        return math.prod(mesh.size(m) for m, r in split.items() if r == role)
+
+    for role in ("b", "h"):
+        if any(t.shape[r.index(role)] % ways(role) for t, r in zip(args, roles) if role in r):
+            split = {m: r for m, r in split.items() if r != role}
+    h_dims = sorted(m for m, r in split.items() if r == "h")
+    group = None  # the KV group each rank takes, where groups stay whole
+    groups = [t.shape[r.index("g")] for t, r in zip(args, roles) if "g" in r]
+    if h_dims and groups:
+        H, G, n = lead.shape[lead_roles.index("h")], groups[0], ways("h")
+        if G % n:
+            if (H // G) % (H // n):
+                split = {m: r for m, r in split.items() if r != "h"}
+            else:
+                coord, rank = mesh.get_coordinate(), 0
+                for m in h_dims:
+                    rank = rank * mesh.size(m) + coord[m]
+                group = rank * (H // n) // (H // G)
+
+    def takes(r, m) -> bool:
+        return m in split and (split[m] in r or (split[m] == "h" and "g" in r and group is None))
+
+    def places(r):
+        return [Shard(r.index(split[m]) if split[m] in r else r.index("g")) if takes(r, m)
+                else Replicate() for m in range(mesh.ndim)]
+
+    in_pl = tuple(places(r) for r in roles)
+    grad_pl = tuple([Partial() if m in split and not takes(r, m) else p
+                     for m, p in enumerate(pl)] for pl, r in zip(in_pl, roles))
+    out_pl = tuple(places(r) for r in out_roles[:n_out])
+
+    def local_call(*local):
+        full = [None] * len(tensors)
+        for i, x, r in zip(present, local, roles):
+            full[i] = x if group is None or "g" not in r else x.narrow(r.index("g"), group, 1)
+        return call(*full)
+
+    return local_map(local_call, out_pl if n_out > 1 else out_pl[0], in_pl, grad_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _launch(kernel, plain, kw, *tensors, name: str, n_out: int = 1):
     """``kernel(*tensors, **kw)``, inside ``PlainBackwardFn`` (the plain
-    version's derivative) where autograd must differentiate a CUDA call."""
-    if _grad_on_card(*tensors):
+    version's derivative) where autograd must differentiate a CUDA call;
+    DTensor inputs run it on their local shards (:func:`_local_launch`)."""
+    if any(is_dtensor(t) for t in tensors):
+        return _local_launch(lambda *local: _launch(kernel, plain, kw, *local, name=name),
+                             name, tensors, n_out)
+    if plain is not None and _grad_on_card(*tensors):
         return PlainBackwardFn.apply(kernel, plain, kw, *tensors)
     return kernel(*tensors, **kw)
 
@@ -140,11 +244,25 @@ def flash_attention(
     kw = dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset)
     if v.shape[-1] == q.shape[-1]:
         return _launch(flash_attention_kernel, flash_attention_plain, dict(scale=scale, **kw),
-                       q, k, v)
+                       q, k, v, name="flash_attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] * k.shape[1] <= 256 * 256:
         return ref.mha_reference(q, k, v, scale=scale, **kw)
     return attention_chunked(q, k, v, scale=scale, **kw)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, D)
+    k_cache: torch.Tensor,  # (B, S, K, D)
+    v_cache: torch.Tensor,  # (B, S, K, D)
+    cache_len: torch.Tensor,  # (B,) int32
+    **kw,
+) -> torch.Tensor:
+    """One query token per row against its cache: the kernel's wrapper (the
+    CUDA kernel on a CUDA tensor, its plain version on a CPU one; it raises
+    under autograd).  ``kw``: ``logit_cap``, ``window``, ``scale``."""
+    return _launch(decode_attention_kernel, None, kw, q, k_cache, v_cache, cache_len,
+                   name="decode_attention")
 
 
 def ssd_scan(
@@ -167,7 +285,7 @@ def ssd_scan(
         raise RuntimeError("ssd: the final state has no gradient; under autograd the scan "
                            "returns y only (call it under torch.no_grad() for the state)")
     return _launch(ssd_kernel, ssd_plain, dict(chunk=chunk, return_state=return_state),
-                   x, dt, A, Bmat, Cmat, D)
+                   x, dt, A, Bmat, Cmat, D, name="ssd", n_out=2 if return_state else 1)
 
 
 def mlstm_parallel(
@@ -181,7 +299,7 @@ def mlstm_parallel(
     kernel's wrapper (the CUDA kernels on a CUDA tensor, through
     ``PlainBackwardFn`` where autograd needs its gradient; its plain
     version on a CPU one)."""
-    return _launch(mlstm_kernel, mlstm_plain, {}, q, k, v, i_gate, f_gate)
+    return _launch(mlstm_kernel, mlstm_plain, {}, q, k, v, i_gate, f_gate, name="mlstm")
 
 
 def ssd_decode_step(
@@ -193,7 +311,16 @@ def ssd_decode_step(
     C_t: torch.Tensor,  # (B, G, N)
     D: Optional[torch.Tensor] = None,  # (H,)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """O(1) recurrent step -> (new fp32 state, y (B, H, P) in x's dtype)."""
+    """O(1) recurrent step -> (new fp32 state, y (B, H, P) in x's dtype).
+    DTensor inputs run it on each rank's rows and heads (`_local_launch`):
+    DTensor cannot flatten the sharded (B, H) of its einsum (torch 2.11)."""
+    args = (state, x_t, dt_t, A, B_t, C_t, D)
+    if any(is_dtensor(t) for t in args):
+        return _local_launch(_ssd_decode_step, "ssd_decode_step", args, n_out=2)
+    return _ssd_decode_step(*args)
+
+
+def _ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
     rep = x_t.shape[1] // B_t.shape[1]
     Bh = B_t.float().repeat_interleave(rep, dim=1)  # (B,H,N)
     Ch = C_t.float().repeat_interleave(rep, dim=1)

@@ -1,0 +1,49 @@
+"""Mesh construction (port of `repro.launch.mesh`).
+
+Functions, not module constants: importing this module touches no device
+and no process group.  A mesh spans the ranks of the default process group,
+which the caller makes first (``torch.distributed.init_process_group`` with
+its address, world size and rank): NCCL on the card, gloo on the CPU.
+Meshes are on ``cuda`` unless the caller passes ``device="cpu"``; asking for
+``cuda`` with no GPU raises (`repro_torch.resolve_device`).
+"""
+
+from __future__ import annotations
+
+import math
+
+from repro_torch import resolve_device
+
+
+def _device_mesh(shape, axes, device):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a {shape} mesh needs a process group: call torch.distributed.init_process_group "
+            f"({'nccl' if dev.type == 'cuda' else 'gloo'}) with {math.prod(shape)} ranks first"
+        )
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; the process group "
+                         f"has {world}")
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device)
+
+
+def make_mesh(dp: int, tp: int, pods: int = 1, *, device=None):
+    """Arbitrary mesh for experiments / elastic remesh."""
+    if pods > 1:
+        return _device_mesh((pods, dp, tp), ("pod", "data", "model"), device)
+    return _device_mesh((dp, tp), ("data", "model"), device)
+
+
+def mesh_num_devices(mesh) -> int:
+    return mesh.size()

@@ -3,7 +3,9 @@
 layers with a shared attention block) and xLSTM (mLSTM and sLSTM
 blocks)."""
 
-from . import attention, cache_update, layers, mamba2, mla, model, moe, transformer, xlstm
+from . import (
+    attention, cache_update, layers, mamba2, mla, model, moe, sharding, transformer, xlstm,
+)
 from .model import (
     cache_batch_axes,
     decode_step,
@@ -23,6 +25,7 @@ __all__ = [
     "mla",
     "model",
     "moe",
+    "sharding",
     "transformer",
     "xlstm",
     "cache_batch_axes",

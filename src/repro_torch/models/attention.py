@@ -5,8 +5,12 @@
 KV-cache layout per layer: {"k": (B, Smax, K, hd), "v": (B, Smax, K, hd)};
 `cache_len` is a scalar (aligned batched serving) or a per-row (B,) int
 tensor (continuous batching: every slot decodes at its own position).  The
-cache is updated in place.  The JAX package's sharding constraints have no
-counterpart on one device.
+cache is updated in place.
+
+Under a mesh (`sharding.use_mesh`) q and the output take the JAX package's
+constraints (batch over dp, heads over tp), and the new K/V rows take the
+cache's layout (`cache_logical_spec`) before they are written into it; with
+no mesh each constraint returns its input.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from repro_torch.kernels import ops
 
 from .cache_update import write_row, write_segment
 from .layers import Params, apply_rope, dense_init, rmsnorm, rmsnorm_init
+from .sharding import DP, TP, axis_size, current_mesh, describe, physical_axes, shard
 
 
 def attn_init(gen, cfg: ModelConfig, *, q_in_dim: Optional[int] = None,
@@ -52,6 +57,31 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def _dp_size() -> int:
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    return axis_size(mesh, physical_axes(mesh, DP))
+
+
+def _tp_size() -> int:
+    mesh = current_mesh()
+    if mesh is None or "model" not in describe(mesh).axis_names:
+        return 0
+    return describe(mesh).shape["model"]
+
+
+def cache_logical_spec(cfg: ModelConfig, tp_size: int, batch: int) -> Tuple:
+    """(B, S, K, hd) logical axes for the KV cache.  Must agree with
+    launch/shardings.py:cache_pspec."""
+    dp_n = _dp_size()
+    heads_ok = tp_size and cfg.n_kv_heads % tp_size == 0
+    if batch % max(dp_n, 1) == 0 and batch >= dp_n:
+        return (DP, None, TP, None) if heads_ok else (DP, TP, None, None)
+    # tiny batch (long-context decode): shard the sequence dim
+    return (None, DP, TP, None) if heads_ok else (None, (DP, TP), None, None)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -112,6 +142,7 @@ def attn_apply(
             q = q + p["wq_b"]
         k, v = cross_kv
         out = ops.flash_attention(q, k, v, causal=False, scale=scale)
+        out = shard(out, DP, None, TP, None)
         return _out_proj(out, p["wo"]), None
 
     q, k, v = _project_qkv(p, x, cfg)
@@ -121,13 +152,20 @@ def attn_apply(
         pos_b = positions if positions.dim() == 2 else positions[None, :]
         q = apply_rope(q, pos_b, cfg.rope_theta)
         k = apply_rope(k, pos_b, cfg.rope_theta)
+    q = shard(q, DP, None, TP, None)
 
     if cache is None:
         out = ops.flash_attention(
             q, k, v, causal=causal, window=window, logit_cap=cfg.attn_softcap, scale=scale
         )
+        out = shard(out, DP, None, TP, None)
         return _out_proj(out, p["wo"]), None
 
+    spec = cache_logical_spec(cfg, _tp_size(), B)
+    if S > 1:
+        # lay fresh k/v out like the cache before the update
+        k = shard(k, *spec)
+        v = shard(v, *spec)
     if S == 1:
         # decode: write the new row first, then attend over len + 1
         write_row(cache["k"], k, cache_len)
@@ -146,6 +184,7 @@ def attn_apply(
             q, k, v, causal=causal, window=window, logit_cap=cfg.attn_softcap,
             q_offset=0, scale=scale,
         )
+    out = shard(out, DP, None, TP, None)
     return _out_proj(out, p["wo"]), cache
 
 

@@ -20,6 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 from .layers import Params, causal_conv1d, dense_init, grouped_rmsnorm
+from .sharding import DP, TP, placed_like, residual_shard, shard
 
 
 def _dims(cfg: ModelConfig):
@@ -91,7 +92,7 @@ def mamba2_apply(
     G, N = s.num_groups, s.state_dim
     gn = G * N
 
-    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
+    z, xBC, dt = _split_proj(cfg, shard(x @ p["in_proj"], DP, None, TP))
     xBC, new_conv = causal_conv1d(
         xBC, p["conv_kernel"], p["conv_bias"], None if state is None else state["conv"]
     )
@@ -116,8 +117,8 @@ def mamba2_apply(
 
     y = y.reshape(B, S, d_in)
     y = grouped_rmsnorm(y * F.silu(z), p["gated_norm"], n_groups=G, eps=cfg.rms_eps)
-    out = y @ p["out_proj"]
+    out = residual_shard(y @ p["out_proj"])
     if state is not None:
-        state["conv"].copy_(new_conv)
-        state["ssm"].copy_(new_ssm)
+        state["conv"].copy_(placed_like(new_conv, state["conv"]))
+        state["ssm"].copy_(placed_like(new_ssm, state["ssm"]))
     return out, state

@@ -13,7 +13,10 @@ key k_pe (64) shared by all heads.  Two forms:
     every device, as in the JAX package.
 
 Cache per layer: {"c_kv": (B, S, kv_lora_rank), "k_pe": (B, S,
-rope_head_dim)}, updated in place.
+rope_head_dim)}, updated in place.  Under a mesh the latent cache is
+sequence-sharded (`mla_cache_spec`); the new rows are written in the
+cache's layout (`cache_update`), and q, k, v, the output and the absorbed
+query take the JAX package's constraints.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch.kernels import ops
 
 from .attention import _out_proj, _proj
 from .cache_update import write_row, write_segment
+from .sharding import DP, TP, shard
 from .layers import Params, apply_rope, dense_init, rmsnorm, rmsnorm_init
 
 
@@ -57,6 +61,10 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloa
 
 def _positions(positions: torch.Tensor) -> torch.Tensor:
     return positions if positions.dim() == 2 else positions[None, :]
+
+
+def mla_cache_spec() -> Tuple:
+    return (DP, TP, None)  # sequence-sharded latent
 
 
 def _q_heads(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
@@ -103,6 +111,7 @@ def mla_apply(
         kv_up_k = p["kv_up"][..., : m.nope_head_dim]  # (r, H, nope)
         kv_up_v = p["kv_up"][..., m.nope_head_dim:]  # (r, H, v)
         q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], kv_up_k)  # activations' dtype
+        q_lat = shard(q_lat, DP, TP, None)
         s_lat = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv)
         s_pe = torch.einsum("bhk,bsk->bhs", q_pe[:, 0].float(), kpe)
         scores = (s_lat + s_pe) * scale  # (B, H, S) fp32
@@ -120,8 +129,10 @@ def mla_apply(
     kv = _proj(c_kv, p["kv_up"])  # (B, S, H, nope + v)
     k_nope, v = kv[..., : m.nope_head_dim], kv[..., m.nope_head_dim:]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(*k_nope.shape[:3], m.rope_head_dim)], -1)
-    q = torch.cat([q_nope, q_pe], dim=-1)
-    out = ops.flash_attention(q, k, v, causal=True, scale=scale)
+    q = shard(torch.cat([q_nope, q_pe], dim=-1), DP, None, TP, None)
+    k = shard(k, DP, None, TP, None)
+    v = shard(v, DP, None, TP, None)
+    out = shard(ops.flash_attention(q, k, v, causal=True, scale=scale), DP, None, TP, None)
     y = _out_proj(out, p["wo"])
     if cache is not None:
         write_segment(cache["c_kv"], c_kv, int(cache_len))

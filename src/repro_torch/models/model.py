@@ -28,10 +28,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.util import tree_map
+from repro_torch.util import is_dtensor, tree_map
 
 from . import attention as attn
 from . import mamba2 as mb
@@ -39,6 +40,7 @@ from . import mla as mla_mod
 from . import transformer as tfm
 from . import xlstm as xl
 from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
+from .sharding import DP, TP, residual_shard, shard
 
 Batch = Dict[str, torch.Tensor]
 
@@ -97,7 +99,15 @@ def init_params(
 
 
 def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    h = p["embed"]["tok"][tokens]
+    table = p["embed"]["tok"]
+    if is_dtensor(table):
+        # a mesh: the vocab-parallel lookup (each rank its vocab shard, the
+        # rows summed) over every token, where XLA partitions JAX's take;
+        # DTensor's embedding mis-masks tokens sharded over another mesh
+        # dim (torch 2.13), and its backward of indexing fails (2.11)
+        h = F.embedding(shard(tokens, *([None] * tokens.dim())), table)
+    else:
+        h = table[tokens]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
     return h
@@ -111,7 +121,7 @@ def head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
 def _lm_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(h, p["final_norm"], eps=cfg.rms_eps)
     logits = (h @ head_weight(p, cfg)).float()
-    return softcap(logits, cfg.final_softcap)
+    return shard(softcap(logits, cfg.final_softcap), DP, None, TP)
 
 
 def _learned_positions(p: Params, positions: torch.Tensor) -> torch.Tensor:
@@ -131,13 +141,14 @@ def _assemble_input(p: Params, cfg: ModelConfig, batch: Batch) -> Tuple[torch.Te
     positions = torch.arange(h.shape[1], device=h.device)
     if cfg.pos_embedding == "learned":
         h = h + _learned_positions(p, positions)[None]
-    return h.to(dtype_of(cfg.dtype)), positions
+    return residual_shard(h.to(dtype_of(cfg.dtype))), positions
 
 
 def _encode(p: Params, cfg: ModelConfig, batch: Batch, *, remat: bool = False) -> torch.Tensor:
     """The encoder over ``audio_frames`` (B, S_enc, D) -> (B, S_enc, D)."""
     frames = batch["audio_frames"]
     h = frames.to(dtype_of(cfg.dtype)) + p["enc_pos"][None, : frames.shape[1]]
+    h = shard(h, DP, None, None)
     h = tfm.encoder_stage_apply(p["encoder"], h, cfg, remat=remat)
     return rmsnorm(h, p["encoder_norm"], eps=cfg.rms_eps)
 
@@ -312,6 +323,7 @@ def decode_step(
         positions = torch.tensor([cache_len], device=dev)
     if cfg.pos_embedding == "learned":
         h = h + _learned_positions(p, positions).reshape(-1, 1, cfg.d_model)
+    h = shard(h, DP, None, None)
     attend_len = None
     if cfg.family != "ssm" and cfg.mla is None:  # xLSTM attends over nothing, MLA masks itself
         attend_len = attn.decode_lengths(cache_len, tokens.shape[0], dev)

@@ -28,8 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.util import is_dtensor
 
 from .layers import Params, dense_init, mlp_apply, mlp_init
+from .sharding import DP, TP, axis_size, describe, physical_axes, shard
 
 
 def moe_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cpu") -> Params:
@@ -95,6 +97,10 @@ def dispatch_plan(gates: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig, n: i
     (N, k), the last group padded to ``g`` tokens with expert 0, gate 0."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
+    # under a mesh the routing is replicated (N x k values): the slot counts
+    # run along every token of a group, which DTensor does not split (its
+    # partial int64 sums come back float32), and XLA does
+    gates, idx = shard(gates, None, None), shard(idx, None, None)
     g = min(m.group_size, n)
     pad = (-n) % g
     if pad:
@@ -117,6 +123,47 @@ def dispatch_plan(gates: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig, n: i
     return combine, g
 
 
+def _experts(exp: Params, combine: torch.Tensor, xg: torch.Tensor, act: str) -> torch.Tensor:
+    """Dispatch, the experts and the combine: (G, g, E, C) x (G, g, D) ->
+    (G, g, D) in xg's dtype."""
+    dispatch = (combine > 0).to(xg.dtype)
+    expert_in = torch.einsum("Ggec,Ggd->Gecd", dispatch, xg)
+    expert_out = _swiglu_experts(exp, expert_in, act)
+    return torch.einsum("Ggec,Gecd->Ggd", combine.to(xg.dtype), expert_out)
+
+
+def _experts_local(exp: Params, combine, xg, act: str):
+    """:func:`_experts` on DTensors through ``local_map``: each rank runs its
+    groups (G over dp) against its experts (E over tp), the layout of JAX's
+    constraints on ``expert_in`` and ``expert_out`` ((DP, TP, None, None));
+    the combine's sum over experts comes back partial over tp.  DTensor
+    cannot run the einsums on those placements: their reshapes merge the
+    sharded dims.  An axis that does not divide G (or E) takes none of
+    it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = combine.device_mesh
+    view = describe(mesh)
+    dp, tp = physical_axes(mesh, DP) or (), physical_axes(mesh, TP)
+    G, E = combine.shape[0], combine.shape[2]
+    on_g = [a in dp and G % axis_size(mesh, dp) == 0 for a in view.axis_names]
+    on_e = [a == tp and E % axis_size(mesh, tp) == 0 for a in view.axis_names]
+
+    def pl(g, e):  # the placement of each mesh dim: g where it splits G, e where E
+        return [g if on_g[m] else e if on_e[m] else Replicate() for m in range(mesh.ndim)]
+
+    names = ("w_gate", "w_up", "w_down")
+    w, w_grad = pl(Replicate(), Shard(0)), pl(Partial(), Shard(0))
+    fn = local_map(
+        lambda c, x, *ws: _experts(dict(zip(names, ws)), c, x, act),
+        pl(Shard(0), Partial()),
+        (pl(Shard(0), Shard(2)), pl(Shard(0), Replicate()), w, w, w),
+        (pl(Shard(0), Shard(2)), pl(Shard(0), Partial()), w_grad, w_grad, w_grad),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(combine, xg, *(exp[n] for n in names))
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss fp32)."""
     B, S, D = x.shape
@@ -125,11 +172,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tenso
     gates, idx, aux = _route(p, tokens, cfg)
     combine, g = dispatch_plan(gates, idx, cfg, N)
     pad = combine.shape[0] * g - N
-    xg = F.pad(tokens, (0, 0, 0, pad)).reshape(-1, g, D)
-    dispatch = (combine > 0).to(x.dtype)
-    expert_in = torch.einsum("Ggec,Ggd->Gecd", dispatch, xg)
-    expert_out = _swiglu_experts(p["experts"], expert_in, cfg.act)
-    out = torch.einsum("Ggec,Gecd->Ggd", combine.to(x.dtype), expert_out)
+    xg = shard(F.pad(tokens, (0, 0, 0, pad)).reshape(-1, g, D), DP, None, None)
+    combine = shard(combine, DP, None, TP, None)
+    if is_dtensor(combine):
+        out = _experts_local(p["experts"], combine, xg, cfg.act)
+    else:
+        out = _experts(p["experts"], combine, xg, cfg.act)
+    out = shard(out, DP, None, None)
     out = out.reshape(-1, D)[:N].reshape(B, S, D)
     if cfg.moe.num_shared:
         out = out + mlp_apply(p["shared"], x, cfg.act)

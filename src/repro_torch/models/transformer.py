@@ -38,6 +38,7 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import xlstm as xl
 from .layers import Params, _normal, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from .sharding import residual_shard
 
 
 def _call(fn, remat: bool, *args, **kw):
@@ -91,6 +92,7 @@ def decoder_layer_apply(
     use_moe: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
     """-> (h, cache, MoE aux loss or None for an MLP layer)."""
+    h = residual_shard(h)
     x = rmsnorm(h, p["ln1"], eps=cfg.rms_eps)
     if cfg.mla is not None:
         a_out, new_cache = mla_mod.mla_apply(

@@ -38,6 +38,7 @@ from repro_torch.kernels.mlstm import gate_cumsum
 from .layers import (
     Params, _normal, causal_conv1d, dense_init, grouped_rmsnorm, rmsnorm, rmsnorm_init,
 )
+from .sharding import DP, TP, shard
 
 State = Dict[str, torch.Tensor]
 
@@ -137,7 +138,7 @@ def mlstm_block_apply(
     _, d_in, nh, _ = _mdims(cfg)
     B, S, _ = h.shape
 
-    up = rmsnorm(h, p["norm"], eps=cfg.rms_eps) @ p["w_up"]
+    up = shard(rmsnorm(h, p["norm"], eps=cfg.rms_eps) @ p["w_up"], DP, None, TP)
     xb, z = up[..., :d_in], up[..., d_in:]
     xc, new_conv = causal_conv1d(
         xb, p["conv_kernel"], p["conv_bias"], None if state is None else state["conv"]

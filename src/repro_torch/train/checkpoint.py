@@ -55,7 +55,7 @@ from repro_torch.bridge import _to_jax_layout, moments_from_jax, params_from_jax
 from repro_torch.configs.base import ModelConfig
 from repro_torch.storage import ObjectStore
 from repro_torch.storage.serialization import dtype_name, from_host, host_array
-from repro_torch.util import tree_flatten, tree_map, tree_unflatten
+from repro_torch.util import is_dtensor, tree_flatten, tree_map, tree_unflatten
 
 CHUNK_BYTES = 64 * 1024 * 1024  # bounded object size
 
@@ -66,6 +66,12 @@ def _leaf_key(run: str, version: int, idx: int, chunk: int) -> str:
 
 def _manifest_key(run: str, version: int) -> str:
     return f"ckpt/{run}/v{version:08d}/manifest"
+
+
+def _gathered(leaf: Any) -> Any:
+    """A DTensor leaf as its full tensor (every rank takes part), so a
+    sharded state's checkpoint holds an unsharded run's bytes."""
+    return leaf.full_tensor() if is_dtensor(leaf) else leaf
 
 
 def save(
@@ -79,7 +85,8 @@ def save(
 ) -> bool:
     """Write a checkpoint version; returns True if this call won the publish
     (False = another writer already published this version: idempotent).
-    Each leaf is copied to the host once."""
+    Each leaf is copied to the host once; a sharded (DTensor) leaf is
+    gathered first, so every rank of its mesh must call this."""
     leaves, struct = tree_flatten(state)
     descs = []
     chunks: Dict[str, bytes] = {}
@@ -88,7 +95,7 @@ def save(
     # gets a private copy
     zero_copy = getattr(store.backend, "zero_copy_puts", False)
     for i, leaf in enumerate(leaves):
-        arr, name = host_array(leaf)
+        arr, name = host_array(_gathered(leaf))
         blob = memoryview(arr).cast("B") if zero_copy else arr.tobytes()
         n_chunks = max(1, math.ceil(len(blob) / CHUNK_BYTES))
         for c in range(n_chunks):
@@ -197,12 +204,16 @@ def load(
     device=None,
     cfg: Optional[ModelConfig] = None,
     opt=None,
+    shardings: Optional[Any] = None,
     worker: str = "ckpt",
 ) -> Tuple[Any, Dict[str, Any], int]:
     """Returns (state, meta, version): the saved tree with tensor leaves on
     ``device`` (the CPU by default).  A version the JAX package wrote is
     read as a train state of model ``cfg`` and optimizer ``opt``, and comes
-    back in the port's layout, ``(params, (step, m, v))``."""
+    back in the port's layout, ``(params, (step, m, v))``.  With
+    ``shardings`` (a tree of `models.sharding.NamedSharding` on the
+    *reader's* mesh, `launch.shardings.to_shardings`) each leaf is placed
+    on that mesh: checkpoint-level resharding for elasticity."""
     if version is None:
         version = latest_version(store, run)
         if version is None:
@@ -232,8 +243,14 @@ def load(
             leaf = torch.from_numpy(leaf.copy())
         leaves.append(leaf.to(device) if device is not None and not from_jax else leaf)
     if from_jax:
-        return _from_jax_state(manifest, leaves, cfg, opt, device or "cpu"), manifest["meta"], version
-    return tree_unflatten(manifest["tree"], leaves), manifest["meta"], version
+        state = _from_jax_state(manifest, leaves, cfg, opt, device or "cpu")
+    else:
+        state = tree_unflatten(manifest["tree"], leaves)
+    if shardings is not None:
+        from repro_torch.models.sharding import distribute
+
+        state = distribute(state, shardings)
+    return state, manifest["meta"], version
 
 
 def gc_old_versions(store: ObjectStore, run: str, keep: int = 3) -> int:

@@ -27,6 +27,11 @@ multiple of 256 elements).
 moments and the parameter in place and drops the gradient, and never
 builds the ``updates`` tree; it gives the bits ``update`` then
 ``apply_updates`` give.
+
+DTensor leaves (a sharded state, `launch.shardings.state_pspec`) are
+updated in their parameters' placements.  An int8 moment is encoded from
+the whole leaf (replicated first), so its 256-blocks are an unsharded
+run's, and it stays replicated, as JAX's ``state_pspec`` leaves it.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.util import tree_flatten, tree_map, tree_unflatten
+from repro_torch.models.sharding import placed_like
+from repro_torch.util import is_dtensor, tree_flatten, tree_map, tree_unflatten
 
 _BLOCK = 256
 
@@ -86,6 +92,10 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1)
 # ---------------------------------------------------------------------------
 
 def _q8_encode(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    if is_dtensor(x):  # the blocks run over the whole leaf
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
     flat = x.reshape(-1)
     pad = (-flat.numel()) % _BLOCK
     blocks = F.pad(flat, (0, pad)).view(-1, _BLOCK)
@@ -216,14 +226,14 @@ class AdamW:
                 g = g.to(torch.float32) * grad_scale
             u, m, v = self._leaf(g, m_enc, v_enc, p, lr_t, bc1, bc2)
             del g
-            p.copy_((p + u).to(p.dtype))
+            p.copy_(placed_like((p + u).to(p.dtype), p))
             del u
             for old, new in ((m_enc, self._enc(m)), (v_enc, self._enc_v(v))):
                 if self.quantize_moments:
-                    old["q"].copy_(new["q"])
-                    old["scale"].copy_(new["scale"])
+                    old["q"].copy_(placed_like(new["q"], old["q"]))
+                    old["scale"].copy_(placed_like(new["scale"], old["scale"]))
                 else:
-                    old.copy_(new)
+                    old.copy_(placed_like(new, old))
         return AdamWState(step=step, m=state.m, v=state.v)
 
 

@@ -7,7 +7,8 @@ idempotent re-execution correct for training.
 
 Features: CE loss with ignore index, MoE aux loss, MTP aux loss (DeepSeek),
 grad clipping, microbatch gradient accumulation in fp32, remat, metrics.
-The JAX package's sharding annotations have no counterpart on one device.
+A sharded state (DTensor leaves, run under `models.sharding.use_mesh`)
+gets its gradients in its parameters' placements.
 
 Gradients are ``torch.autograd.grad`` of the loss with respect to the
 parameter leaves (detached aliases that require grad, so the caller's
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward, forward_hidden, head_weight
+from repro_torch.models.sharding import DP, placed_like, shard
 from repro_torch.util import tree_flatten, tree_unflatten
 
 from .fused_ce import fused_cross_entropy
@@ -49,7 +51,10 @@ def cross_entropy(
     mask = labels != IGNORE
     safe = torch.where(mask, labels, 0)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    # under a mesh the gather reads the vocab whole: DTensor's gather over a
+    # vocab-sharded dim leaves a masked partial sum it fails to reduce
+    # (torch 2.13), where XLA partitions JAX's take_along_axis
+    gold = torch.gather(shard(logits, DP, None, None), -1, safe[..., None])[..., 0]
     nll = torch.where(mask, logz - gold, 0.0)
     return nll.sum(), mask.sum()
 
@@ -131,8 +136,7 @@ def grad_fn(loss_fn, params, batch) -> Tuple[List[torch.Tensor], Dict[str, torch
     grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
     del loss
     for i, (g, p) in enumerate(zip(grads, flat)):
-        if g is None:
-            grads[i] = torch.zeros_like(p)
+        grads[i] = torch.zeros_like(p) if g is None else placed_like(g, p)
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 

@@ -50,3 +50,30 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     leaves, struct = tree_flatten(tree)
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(struct, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_map_with_path(fn: Callable, tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None,
+                       path: Tuple = ()) -> Any:
+    """``fn(path, leaf)`` over a tree, keeping its containers (a named tuple
+    stays one).  ``path`` is a tuple of keys: a dict key or a named tuple's
+    field name as a string, a list or tuple index as an int."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, is_leaf, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, is_leaf, path + (k,))
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        items = [tree_map_with_path(fn, v, is_leaf, path + (i,)) for i, v in enumerate(tree)]
+        return tuple(items) if isinstance(tree, tuple) else items
+    return fn(path, tree)
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor, without importing ``torch.distributed.tensor``
+    (a process that never made one has not loaded it)."""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

@@ -941,3 +941,71 @@ def test_bf16_cuda_checkpoint_round_trips_through_a_file_backend(cuda, tmp_path)
     for x, y in zip(a, b):
         assert y.device.type == "cuda" and x.dtype == y.dtype
         assert torch.equal(x.reshape(y.shape), y)  # a 0-d leaf comes back as (1,)
+
+
+@pytest.mark.cuda
+def test_sharded_program_on_a_one_card_nccl_mesh(cuda):
+    """Phase 9a of ``chip_smoke.py`` at the reduced width: a (1, 1) mesh over
+    NCCL (world size 1), parameters and caches placed by the port's rules,
+    prefill of two prompts and 4 greedy decode steps under ``use_mesh``
+    equal to the plain-tensor run (tokens identical, logits within 2e-5),
+    the flash and decode kernels launched on the local shards; then one
+    train step on the sharded state: a finite loss, every leaf's gradient
+    nonzero."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import batch_pspec, cache_pspec, state_pspec, to_shardings
+    from repro_torch.models.sharding import distribute, param_sharding, use_mesh
+    from repro_torch.train import TrainState, adamw
+
+    cfg = dataclasses.replace(CONFIGS["llama3-8b"].reduced(), n_layers=2)
+    full = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x  # noqa: E731
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda,
+                                generator=torch.Generator(device=cuda).manual_seed(2))
+
+        def generate(p, cache):
+            toks, logits = [], []
+            out, cache, n = prefill(p, cfg, {"tokens": prompts}, cache)
+            for i in range(5):
+                logits.append(full(out[:, -1]))
+                toks.append(logits[-1].argmax(-1))
+                if i < 4:
+                    out, cache = decode_step(p, cfg, toks[-1][:, None], cache, n + i)
+            return torch.stack(toks), torch.stack(logits)
+
+        with torch.no_grad():
+            ref_toks, ref_logits = generate(params, init_cache(cfg, 2, 64, torch.float32, cuda))
+        sp = distribute(params, param_sharding(mesh, params))
+        cache = init_cache(cfg, 2, 64, torch.float32, cuda)
+        cache = distribute(cache, to_shardings(mesh, cache_pspec(mesh, cfg, cache)))
+        before = (fmod.flash_attention.launches, dmod.decode_attention.launches)
+        with torch.no_grad(), use_mesh(mesh):
+            toks, logits = generate(sp, cache)
+        assert fmod.flash_attention.launches > before[0]
+        assert dmod.decode_attention.launches > before[1]
+        assert torch.equal(toks, ref_toks)
+        assert (logits - ref_logits).abs().max().item() <= 2e-5
+
+        opt = adamw(1e-4)
+        state = TrainState(sp, opt.init(sp))
+        state = distribute(state, to_shardings(mesh, state_pspec(mesh, state)))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(3))
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = distribute(batch, to_shardings(mesh, batch_pspec(mesh, batch)))
+        with use_mesh(mesh):
+            grads, _ = tts.grad_fn(tts.make_loss_fn(cfg), state.params, batch)
+            assert all(bool((full(g) != 0).any()) for g in grads)
+            _, metrics = tts.make_train_step(cfg, opt, inplace=True)(state, batch)
+        assert np.isfinite(float(full(metrics["loss"])))
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
