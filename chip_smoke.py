@@ -99,8 +99,9 @@ script exits non-zero:
    time against the plain attention backward's;
 5b. elastic: llama3-8b width cut to 1 layer through ``train_elastic`` on
    ``WrenExecutor(num_workers=2)`` over the in-memory store (int8 moments,
-   fused CE, 2 steps per chunk, 6 steps scaled to 3 workers at chunk 1,
-   then a resume to 8): versions 3 then 4, a warm start, and chunk 0 run
+   fused CE, 2 steps per chunk, 4 steps scaled to 3 workers at chunk 1,
+   then a resume to 6; 6 and 8 until the script needed the time):
+   versions 2 then 3, a warm start, and chunk 0 run
    again after the warm cache is cleared and v1 deleted writes the same
    leaf bytes; ``python -m repro_torch.launch.train --arch llama3-8b
    --reduced --steps 4 --steps-per-chunk 2`` runs at 5e;
@@ -140,7 +141,8 @@ script exits non-zero:
    bf16 weights from seed 0, the fp32 cache) in ``python -m
    repro_torch.launch.serve --kv-root K --obj-root O`` workers, the smoke's
    own process holding no model: one worker serves 16 requests (prompts of
-   16-300 tokens from seed 0, 64 new tokens, 4 slots); then two workers
+   16-300 tokens from seed 0, ``SERVE_NEW_TOKENS`` = 16 new tokens, 4
+   slots); then two workers
    serve them again, and one is SIGKILLed once it has published a result
    and still holds live leases; the survivor finishes every request, one
    result object each, the victim's results untouched, and exits 0 on
@@ -154,8 +156,9 @@ script exits non-zero:
    both runs, and the others are counted; each worker's kernel launches
    (its ``launches`` line);
 6c. elastic resume: llama3-8b width cut to 1 layer (bf16, int8 moments, 2
-   x 512 tokens, 2 steps a chunk): 2 chunks on a ``FileBackend`` root
-   here, then the third twice, here from the state in memory (the
+   x 512 tokens, 2 steps a chunk): 1 chunk on a ``FileBackend`` root
+   here (2 until the script needed the time), then the second twice, here
+   from the state in memory (the
    uninterrupted run) and in a fresh process from the root, whose losses
    must equal the uninterrupted run's bit for bit; the disk's room first (three versions'
    worth or the phase fails), the bytes of a version and the seconds to
@@ -163,8 +166,8 @@ script exits non-zero:
 7. BSP on the port's runtime over file roots (``FileBackend`` and a
    4-shard ``FileKVStore`` in a temp dir), host only (no kernel runs), in
    at most ``BSP_BUDGET_S`` = 120 s: 7a word count over ``make_documents``
-   in 333 partitions (about 50 MB of text), 8 workers, equal to an
-   in-process ``Counter``; 7b terasort of 5 x 10^5 100-byte records in 20
+   in 333 partitions (about 25 MB of text), 8 workers, equal to an
+   in-process ``Counter``; 7b terasort of 1.25 x 10^5 100-byte records in 20
    objects -> 20 partitions, intermediates on the KV: sorted, 400
    intermediate objects, none left after the merge; 7c a sort driver
    process SIGKILLed between partition and merge, adopted by a fresh
@@ -172,14 +175,17 @@ script exits non-zero:
    written once, none lost); 7d HOGWILD! on the KV store as
    ``examples/hogwild_ps.py`` runs it (8 data shards; no bound, a
    staleness bound of 4, int8 compression): the loss falls; each part's
-   wall time on the host clock;
+   wall time on the host clock; all of it under the port's runtime
+   sanitizer (`repro_torch.analysis.sanitizer`, installed here for the
+   rest of the script, and in 7c's children): a ``sanitizer`` line, the
+   reports (none allowed) and the ops it saw in each process (above zero);
 8. the ``repro-kvd`` wire tier on the card's machine, in at most
    ``WIRE_BUDGET_S`` = 150 s: the port's daemon through its CLI
    (``python -m repro_torch.storage.net_server``) on a Unix socket (one
    for 8a's two runs, one for 8b-8d); 8a llama3-8b at full width and
    depth, 6b's engine (``WIRE_ENGINE``) in this process behind
-   ``ContinuousEngine.run`` over ``NetKVStore`` + ``NetBackend``: 6b's 16
-   requests, 12 at once and 4 the
+   ``ContinuousEngine.run`` over ``NetKVStore`` + ``NetBackend``:
+   ``WIRE_REQUESTS`` = 8 requests drawn as 6b's are, 6 at once and 2 the
    moment the idle engine has entered ``blpop`` (which must return the
    first of them), served over in-memory stores, then over a steady
    daemon, then over one SIGKILLed once the first result is published and
@@ -192,8 +198,10 @@ script exits non-zero:
    one daemon with 8 workers, the sorted partitions equal to 7b's byte for
    byte; 8c 7c's adoption over one daemon, both children rebuilding the
    stores from their ``net_kv`` / ``net_obj`` specs; 8d 7d's HOGWILD!
-   with the executor and the parameter server on one daemon, in 7d's
-   bands.  No fallback: a daemon that does not start fails the phase.
+   with the executor and the parameter server on one daemon, at half
+   7d's steps per worker, in 7d's bands; under the sanitizer as 7 is, the daemons started with
+   ``REPRO_SANITIZE=1``, and its ``sanitizer`` line.  No fallback: a
+   daemon that does not start fails the phase.
 9. sharded execution, in at most ``DIST_BUDGET_S`` = 45 s: a (1, 1)
    ``DeviceMesh`` ("data", "model") over NCCL, world size 1 (the process
    group from a ``HashStore``, torn down at the end), parameters, caches,
@@ -214,7 +222,9 @@ script exits non-zero:
 
 ``python3 chip_smoke.py serve-ab ROOT`` runs no phase: it times phase
 3's llama3-8b decode step on this tree against the tree at ROOT (the
-parent commit unpacked with ``git archive``), alternating fresh processes.
+parent commit unpacked with ``git archive``), alternating fresh processes;
+``python3 chip_smoke.py sanitize-ab ROOT`` times phases 7 and 8 the same
+way (this tree's sanitized, ROOT's as that tree runs them).
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches per serving and training phase, error and
@@ -226,6 +236,8 @@ result.
 
 from __future__ import annotations
 
+import bisect
+import collections
 import dataclasses
 import json
 import math
@@ -1001,7 +1013,9 @@ def step_profile(torch, cfg, run, n_steps, weight_bytes, state_bytes=0, cross_by
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ev, busy_ms, top = device_summary(prof, n_steps)
+    summary_s = time.perf_counter() - t0
     emit({
         "phase": "serve_profile", "arch": cfg.name, "live_slots": 4, "steps": n_steps,
         "profiler_saw_device": bool(ev),
@@ -1012,26 +1026,82 @@ def step_profile(torch, cfg, run, n_steps, weight_bytes, state_bytes=0, cross_by
         "state_bound_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
         "cross_cache_bound_ms": cross_bytes / HBM_BYTES_PER_S * 1e3,
         "least_step_ms": (weight_bytes + 2 * state_bytes + cross_bytes) / HBM_BYTES_PER_S * 1e3,
-        "top_device_ms_per_step": top,
+        "top_device_ms_per_step": top, "profile_summary_s": summary_s,
     })
+
+
+DeviceEvents = collections.namedtuple("DeviceEvents", "key self_device_time_total count")
+
+
+def raw_events(prof):
+    """The finished profile's events as the tracer recorded them.  Read
+    from these, a summary costs about a microsecond an event; ``key_averages``
+    and ``events`` first turn every host event into a Python object (about
+    90 us each on the host, 17-43 s for one profiled train step)."""
+    return prof.profiler.kineto_results.events()
 
 
 def device_summary(prof, n, annotations=()):
     """(device events, device-busy ms per run, the 8 largest [name, ms per
-    run, launches per run]) of a profile over ``n`` runs.  Device-side
-    events only: an operator's entry repeats its kernels' time; the
-    device-side copies of ``record_function`` ranges named in
-    ``annotations`` are left out (they span kernels counted already).  The
-    sum of the events' counts over ``n`` is the device launches per run."""
+    run, launches per run]) of a profile over ``n`` runs, as
+    ``key_averages`` groups them: by demangled name, each with its device
+    time in us and its count.  Device-side events only: an operator's
+    entry repeats its kernels' time; the device-side copies of
+    ``record_function`` ranges named in ``annotations`` are left out (they
+    span kernels counted already).  The sum of the events' counts over
+    ``n`` is the device launches per run."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
 
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-          and e.key not in annotations]
+    by_key = {}
+    for e in raw_events(prof):
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        key = _rewrite_name(e.name(), with_wildcard=True)
+        us, count = by_key.get(key, (0.0, 0))
+        by_key[key] = (us + e.duration_ns() / 1e3, count + 1)
+    ev = [DeviceEvents(k, us, c) for k, (us, c) in by_key.items()
+          if us > 0 and k not in annotations]
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     return ev, busy_ms, [[e.key[:80], e.self_device_time_total / 1e3 / n, e.count // n]
                          for e in top]
+
+
+def range_device_time(prof, names):
+    """{name: [calls, device us]} of the host-side ``record_function``
+    ranges named ``names``: the calls, and the device time of the kernels
+    launched inside them, as ``events()`` gives a range's
+    ``device_time_total``: a device event belongs to the host op whose
+    correlation id it is linked to, and that op to the range that holds
+    its start on its thread."""
+    from torch.autograd import DeviceType
+
+    spans, op_at, device = {}, {}, []
+    for e in raw_events(prof):
+        if e.device_type() == DeviceType.CPU:
+            if e.linked_correlation_id() != 0:  # a runtime call, tied to its op
+                continue
+            if e.name() in names:
+                spans.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns(), e.name()))
+            op_at[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+        else:
+            device.append((e.linked_correlation_id(), e.duration_ns()))
+    out = {name: [0, 0.0] for name in names}
+    for rows in spans.values():
+        rows.sort()
+        for _, _, name in rows:
+            out[name][0] += 1
+    starts = {thread: [r[0] for r in rows] for thread, rows in spans.items()}
+    for corr, ns in device:
+        thread, t = op_at.get(corr, (None, 0))
+        if thread not in spans:
+            continue
+        i = bisect.bisect_right(starts[thread], t) - 1  # these ranges do not nest
+        if i >= 0 and t <= spans[thread][i][1]:
+            out[spans[thread][i][2]][1] += ns / 1e3
+    return out
 
 
 def profile_prefill(torch, port, params, cfg, dev, n_tok=300, batch=None, max_len=1024):
@@ -1058,13 +1128,16 @@ def profile_prefill(torch, port, params, cfg, dev, n_tok=300, batch=None, max_le
     prefill_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
+    t0 = time.perf_counter()
     ev, busy_ms, top = device_summary(prof, 1)
+    summary_s = time.perf_counter() - t0
     row = {
         "phase": "prefill_profile", "arch": cfg.name, "batch": B, "prompt_len": n_tok,
         "inputs": {k: list(v.shape) for k, v in batch.items()},
         "profiler_saw_device": bool(ev), "prefill_ms": prefill_ms, "device_busy_ms": busy_ms,
         "device_launches": sum(e.count for e in ev),
         "device_idle_share": max(0.0, 1.0 - busy_ms / prefill_ms), "top_device_ms": top,
+        "profile_summary_s": summary_s,
     }
     if cfg.family == "ssm":
         xl = port["xlstm"]
@@ -1398,10 +1471,9 @@ def phase_train_step(torch, np, port, dev, card, cfg):
                     isinstance(x, dict) and set(x) == {"q", "scale"}))[0]
                 nonzero = [bool((leaf["q"] != 0).any()) for leaf in leaves]
             if prof is not None:
-                from torch.autograd import DeviceType
-
                 t_post = time.perf_counter()
                 ev, busy_ms, top = device_summary(prof, 1, annotations=tuple(ranges))
+                in_ranges = range_device_time(prof, ranges)
                 unprofiled_ms = rows[-1]["step_s"] * 1e3
                 row.update({
                     "profiler_saw_device": bool(ev), "device_busy_ms": busy_ms,
@@ -1410,14 +1482,12 @@ def phase_train_step(torch, np, port, dev, card, cfg):
                 })
                 for k in expect:
                     short, rng, pattern = TRAIN_KERNELS[k]
-                    bwd = [e for e in prof.events()
-                           if e.name == rng and e.device_type == DeviceType.CPU]
                     fwd = [e for e in ev if re.search(pattern, e.key)]
                     row.update({
                         f"{short}_forward_device_ms":
                             sum(e.self_device_time_total for e in fwd) / 1e3,
-                        f"{rng}_calls": len(bwd),
-                        f"{rng}_device_ms": sum(e.device_time_total for e in bwd) / 1e3,
+                        f"{rng}_calls": in_ranges[rng][0],
+                        f"{rng}_device_ms": in_ranges[rng][1] / 1e3,
                     })
                 row["top_device_ms"] = top
                 row["profile_summary_s"] = time.perf_counter() - t_post
@@ -1500,8 +1570,8 @@ def phase_elastic(torch, np, port, dev, card, cfg):
     """The elastic trainer at llama3-8b width cut to ``ELASTIC_LAYERS``
     layers, composed as ``launch/train.py`` composes it (int8 moments and
     the fused CE for the 128256-row head): ``WrenExecutor(num_workers=2)``
-    over the in-memory store, 2 steps per chunk, 6 steps with the pool
-    scaled to 3 at chunk 1, then a resume to 8; then chunk 0 run again
+    over the in-memory store, 2 steps per chunk, 4 steps with the pool
+    scaled to 3 at chunk 1, then a resume to 6; then chunk 0 run again
     after ``WARM_CACHE.clear()`` and the deletion of v1 writes the same
     leaf bytes (sha256 per leaf blob)."""
     from functools import partial
@@ -1519,11 +1589,11 @@ def phase_elastic(torch, np, port, dev, card, cfg):
     reset_counters(wrappers)
     try:
         t0 = time.perf_counter()
-        tcfg = el.ElasticTrainConfig(run="smoke", steps_per_chunk=2, total_steps=6,
+        tcfg = el.ElasticTrainConfig(run="smoke", steps_per_chunk=2, total_steps=4,
                                      keep_checkpoints=5)
         hist = el.train_elastic(wex, cfg, opt, tcfg, batch_fn, scale_plan={1: 3}, device=dev)
         v_first = ck.latest_version(wex.store, "smoke")
-        tcfg2 = dataclasses.replace(tcfg, total_steps=8)
+        tcfg2 = dataclasses.replace(tcfg, total_steps=6)
         hist2 = el.train_elastic(wex, cfg, opt, tcfg2, batch_fn, device=dev)
         v_resumed = ck.latest_version(wex.store, "smoke")
         wall = time.perf_counter() - t0
@@ -1555,8 +1625,8 @@ def phase_elastic(torch, np, port, dev, card, cfg):
         "version_leaf_bytes": version_bytes, "leaf_blobs": len(before),
         "duplicate_chunk_bytes_identical": same, "card": card,
     })
-    check(v_first == 3 and v_resumed == 4, f"elastic versions {v_first}, {v_resumed}; "
-                                           "expected 3 then 4")
+    check(v_first == 2 and v_resumed == 3, f"elastic versions {v_first}, {v_resumed}; "
+                                           "expected 2 then 3")
     check(sum(h["warm_start"] for h in hist) >= 1, "no warm start")
     check(all(np.isfinite(h["loss"]) for h in hist), "a non-finite elastic loss")
     check(len(before) > 0 and same, "the duplicate chunk wrote other leaf bytes")
@@ -1611,6 +1681,7 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
     cfg = dataclasses.replace(port["CONFIGS"][arch], n_layers=n_layers,
                               dtype="float32", param_dtype="float32")
     expect = train_launches(cfg)
+    laps = [time.perf_counter()]
     p_gpu = port["init_params"](cfg, torch.Generator(device=dev).manual_seed(1), dev)
     p_cpu = port["tree_map"](lambda t: t.cpu(), p_gpu)
     dcfg = port["DataConfig"](seq_len=seq, global_batch=1, vocab_size=cfg.vocab_size)
@@ -1621,7 +1692,9 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
     g_gpu, m_gpu = ts.grad_fn(loss_fn, p_gpu, {k: v.to(dev) for k, v in batch.items()})
     launches = {name: fn.launches for name, fn in wrappers.items()}
     g_gpu = [g.cpu() for g in g_gpu]
+    laps.append(time.perf_counter())
     g_cpu, m_cpu = ts.grad_fn(loss_fn, p_cpu, batch)
+    laps.append(time.perf_counter())
     loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     grad_ratio = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                      for a, b in zip(g_gpu, g_cpu))
@@ -1629,13 +1702,16 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
     struct = port["tree_flatten"](p_cpu)[1]
     grads = port["tree_unflatten"](struct, g_cpu)
     u_c, s_c = opt.update(grads, opt.init(p_cpu), p_cpu)
+    laps.append(time.perf_counter())
     u_g, s_g = opt.update(port["tree_map"](lambda t: t.to(dev), grads), opt.init(p_gpu), p_gpu)
+    torch.cuda.synchronize()
+    laps.append(time.perf_counter())
     code_diffs, code_max, scale_err, upd_ratio = 0, 0, 0.0, 0.0
     for a, b in zip(port["tree_flatten"]((s_g.m, s_g.v))[0], port["tree_flatten"]((s_c.m, s_c.v))[0]):
         a = a.cpu()
-        if b.dtype == torch.int8:
-            d = (a.int() - b.int()).abs()
-            code_diffs += int((d > 0).sum())
+        if b.dtype == torch.int8:  # codes lie in [-127, 127]: int16 holds their difference
+            d = (a.to(torch.int16) - b.to(torch.int16)).abs_()
+            code_diffs += int(torch.count_nonzero(d))
             code_max = max(code_max, int(d.max()))
         else:
             scale_err = max(scale_err, float((a - b).abs().max()))
@@ -1643,6 +1719,7 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
         upd_ratio = max(upd_ratio, float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30))
     n_codes = sum(t.numel() for t in port["tree_flatten"]((s_c.m, s_c.v))[0]
                   if t.dtype == torch.int8)
+    laps.append(time.perf_counter())
     ok = loss_err <= 1e-5 and grad_ratio <= 1e-3 and code_max <= 1 and scale_err <= 1e-7 \
         and upd_ratio <= 1e-6
     emit({
@@ -1653,6 +1730,9 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
         "int8_codes": n_codes, "int8_codes_one_apart": code_diffs, "int8_code_max_diff": code_max,
         "scale_max_abs_err": scale_err, "update_err_over_leaf_max": upd_ratio,
         "launches": launches, "expected_launches": expect,
+        # host-clock seconds of its parts
+        "parts_s": dict(zip(("init_and_card_step", "cpu_step", "cpu_optimizer",
+                             "card_optimizer", "compare"), (b - a for a, b in zip(laps, laps[1:])))),
         "tol": {"loss_rel": 1e-5, "grad_over_leaf_max": 1e-3, "scale_abs": 1e-7,
                 "update_over_leaf_max": 1e-6},
         "ok": ok, "card": card,
@@ -1675,11 +1755,15 @@ def phase_train_consistency(torch, np, port, dev, card, arch="llama3-8b", n_laye
 # phase 7: BSP, MapReduce, terasort and the parameter server (host only)
 # ---------------------------------------------------------------------------
 
-WC_DOCS, WC_LINES = 333, 3300  # 7a: the paper's 333 partitions, about 50 MB of text
+# 7a: the paper's 333 partitions, about 25 MB of text (50 MB until a slow
+# host's run passed the time limit with phase 7 at 93.9 s of its 120)
+WC_DOCS, WC_LINES = 333, 1650
 WC_WORKERS, WC_REDUCERS = 8, 8
-# 7b (and 8b): 50 MB of 100-byte records -> 20 partitions (100 MB until the
-# script took 1288.0 s in PR 24's proof run: 7b 28.7 s, 8b 46.6 s there)
-SORT_RECORDS, SORT_FILES = 5 * 10 ** 5, 20
+# 7b (and 8b): 12.5 MB of 100-byte records -> 20 partitions (100 MB until a
+# slow host's run took 1288.0 s, 7b 28.7 s and 8b 46.6 s there; 50 MB until
+# the sanitizer put phase 8 at 107-116 s of its 150 with 8b 20.6-24.4 s;
+# 25 MB until 8b took 17.7 s of a slow host's 70.7 s phase 8)
+SORT_RECORDS, SORT_FILES = 125 * 10 ** 3, 20
 ADOPT_RECORDS, ADOPT_FILES = 10 ** 5, 10  # 7c: the SIGKILLed driver's job
 KV_SHARDS = 4
 PS_DIM, PS_SHARDS, PS_ROWS, PS_STEPS = 64, 8, 128, 60  # 7d: as examples/hogwild_ps.py
@@ -1726,10 +1810,44 @@ def ps_grad(w, shard):
     return 2.0 * X.T @ (X @ w - y) / len(y)
 
 
+def sanitized():
+    """The port's runtime sanitizer, installed (idempotent, with no undo:
+    every store, executor and scheduler built from here on is
+    instrumented), its reports and op count cleared."""
+    from repro_torch.analysis import sanitizer
+
+    sanitizer.install()
+    sanitizer.state.clear()
+    return sanitizer
+
+
+def sanitizer_counts(san):
+    """This process's sanitizer reports (as text) and the ops it saw."""
+    return {"reports": [str(r) for r in san.state.snapshot()], "ops_seen": san.state.ops_seen}
+
+
+def sanitizer_check(part, san, children):
+    """Phase ``part``'s sanitizer line: the reports of this process and of
+    its children (their `sanitizer_counts`), and the ops each saw; any
+    report fails, and so does a process that saw no op (a sanitizer never
+    installed)."""
+    own = sanitizer_counts(san)
+    reports = own["reports"] + [r for c in children for r in c["reports"]]
+    emit({"phase": "sanitizer", "part": part, "reports": len(reports),
+          "ops_seen": own["ops_seen"], "children_ops_seen": [c["ops_seen"] for c in children],
+          "report_list": reports})
+    check(not reports, f"phase {part}: {len(reports)} sanitizer report(s): {reports}")
+    check(own["ops_seen"] > 0 and all(c["ops_seen"] > 0 for c in children),
+          f"phase {part}: the sanitizer saw no op in a process: {own['ops_seen']}, "
+          f"{[c['ops_seen'] for c in children]}")
+
+
 def phase_bsp(card):
     """7: the paper's higher-level models on the port's runtime over file
-    roots, host only (no kernel runs): word count, terasort, a SIGKILLed
-    sort driver adopted by a fresh process, HOGWILD! on the KV store."""
+    roots, host only (no kernel runs), under the port's runtime sanitizer
+    (installed here, for the rest of the script): word count, terasort, a
+    SIGKILLed sort driver adopted by a fresh process, HOGWILD! on the KV
+    store."""
     import os
     import shutil
     import tempfile
@@ -1738,6 +1856,7 @@ def phase_bsp(card):
     from repro_torch.core import WrenExecutor, word_count
     from repro_torch.data import make_documents
 
+    san = sanitized()
     root = tempfile.mkdtemp(prefix="chip-smoke-bsp-")
     t_phase = time.perf_counter()
     try:
@@ -1770,13 +1889,14 @@ def phase_bsp(card):
 
         # 7c: a sort driver SIGKILLed between partition and merge, adopted by
         # a fresh process
-        run_adoption(os.path.join(root, "adopt"), "bsp_adopt", card)
+        adopted = run_adoption(os.path.join(root, "adopt"), "bsp_adopt", card)
 
         # 7d: HOGWILD! on the KV store, as examples/hogwild_ps.py runs it
         run_hogwild(lambda: WrenExecutor(num_workers=6), "bsp_hogwild", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t_phase
+    sanitizer_check("7", san, adopted["sanitizer"])
     emit({"phase": "bsp", "wall_s": wall, "budget_s": BSP_BUDGET_S, "clock": "host",
           "card": card})
     check(wall <= BSP_BUDGET_S, f"phase 7 took {wall:.1f} s of its {BSP_BUDGET_S} s")
@@ -1786,7 +1906,9 @@ def phase_bsp(card):
 def run_adoption(where, phase, card):
     """7c: a sort driver child (``ADOPT_RECORDS`` records) SIGKILLed between
     partition and merge, adopted by a fresh child, both over the stores
-    ``where`` names (`child_stores`); checked.  -> the adopter's row."""
+    ``where`` names (`child_stores`) and both sanitized; checked.  -> the
+    adopter's row, with both children's `sanitizer_counts` under
+    ``sanitizer``."""
     t0 = time.perf_counter()
     drv = spawn_child("sort-driver", where)
     try:
@@ -1796,8 +1918,10 @@ def run_adoption(where, phase, card):
         check(False, "the sort driver never reached its kill barrier")
     check(drv.returncode == -9, f"the sort driver exited {drv.returncode}: "
                                 f"{drv.stderr.read()[-2000:]}")
+    driver = json.loads(drv.stdout.read().strip().splitlines()[-1])  # its line before the kill
     adopted = child_json(spawn_child("sort-adopt", where), "the adopting process")
-    adopted.update(phase=phase, wall_s=time.perf_counter() - t0, clock="host", card=card)
+    adopted.update(phase=phase, wall_s=time.perf_counter() - t0, clock="host", card=card,
+                   sanitizer=[driver["sanitizer"], adopted["sanitizer"]])
     emit(adopted)
     check(adopted["sorted"] and adopted["records_equal_inputs"]
           and adopted["n_records"] == ADOPT_RECORDS and adopted["merge_tasks"] == ADOPT_FILES
@@ -1845,10 +1969,11 @@ def run_terasort(kv, store, wex, phase, card):
     return row
 
 
-def run_hogwild(make_executor, phase, card):
-    """7d: HOGWILD! as ``examples/hogwild_ps.py`` runs it, in its three
-    configurations, on a fresh ``make_executor()`` each (the parameter
-    server on its KV), checked against the loss and push bands."""
+def run_hogwild(make_executor, phase, card, steps=PS_STEPS):
+    """7d: HOGWILD! as ``examples/hogwild_ps.py`` runs it (``steps`` per
+    worker), in its three configurations, on a fresh ``make_executor()``
+    each (the parameter server on its KV), checked against the loss and
+    push bands."""
     import numpy as np
 
     from repro_torch.core import ParameterServer, PSConfig, hogwild_sgd
@@ -1866,7 +1991,7 @@ def run_hogwild(make_executor, phase, card):
             server = ParameterServer(wex.kv, np.zeros(PS_DIM), cfg)
             wex.kv.ledger.clear()
             t0 = time.perf_counter()
-            w = hogwild_sgd(wex, server, ps_grad, shards, steps_per_worker=PS_STEPS, lr=0.01)
+            w = hogwild_sgd(wex, server, ps_grad, shards, steps_per_worker=steps, lr=0.01)
             wall = time.perf_counter() - t0
             # a straggler's speculative copy may still be running when the
             # job returns: stopping the pool lets it finish its steps
@@ -1880,10 +2005,10 @@ def run_hogwild(make_executor, phase, card):
                            for st in wex.pool.stats().values())
         loss0, loss1 = _ps_loss(np.zeros(PS_DIM), shards), _ps_loss(w, shards)
         row = {"phase": phase, "config": label, "shards": PS_SHARDS,
-               "steps_per_worker": PS_STEPS, "wall_s": wall, "loss_start": loss0,
-               "loss_end": loss1, "task_attempts": attempts, "pushes": attempts * PS_STEPS,
+               "steps_per_worker": steps, "wall_s": wall, "loss_start": loss0,
+               "loss_end": loss1, "task_attempts": attempts, "pushes": attempts * steps,
                "blocks_applied": applied,
-               "blocks_rejected": attempts * PS_STEPS * cfg.num_blocks - applied,
+               "blocks_rejected": attempts * steps * cfg.num_blocks - applied,
                "kv_requests": len(recs), "kv_bytes": sum(r.nbytes for r in recs),
                "rel_err": float(np.linalg.norm(w - w_true) / np.linalg.norm(w_true)),
                "clock": "host", "card": card}
@@ -1914,7 +2039,9 @@ def bsp_child(role, where) -> None:
     """7c's and 8c's two processes: ``sort-driver`` submits a terasort and
     SIGKILLs itself the instant the partition barrier commits;
     ``sort-adopt`` adopts the job in a fresh process and prints what it
-    finds, and how it reached the stores."""
+    finds, and how it reached the stores.  Both run under the port's
+    runtime sanitizer, and print its `sanitizer_counts` (the driver on a
+    line of its own just before its kill)."""
     import os
     import signal
 
@@ -1923,6 +2050,7 @@ def bsp_child(role, where) -> None:
     from repro_torch.core import adopt_job, bsp, verify_sorted
     from repro_torch.storage import object_store
 
+    san = sanitized()
     kv, store, wex = child_stores(where)
     if role == "sort-driver":
         orig = bsp._stage_barrier
@@ -1930,6 +2058,7 @@ def bsp_child(role, where) -> None:
         def killing_barrier(wex_, job, idx, plan, outputs, **kw):
             out = orig(wex_, job, idx, plan, outputs, **kw)
             if idx == 1:  # the partition stage's barrier
+                print(json.dumps({"sanitizer": sanitizer_counts(san)}), flush=True)
                 os.kill(os.getpid(), signal.SIGKILL)
             return out
 
@@ -1954,6 +2083,7 @@ def bsp_child(role, where) -> None:
            "reconnected": sorted(kind for kind, _ in object_store._RECONNECT_CACHE)}
     wex.shutdown()
     kv.close()
+    row["sanitizer"] = sanitizer_counts(san)
     print(json.dumps(row), flush=True)
 
 
@@ -1961,8 +2091,11 @@ def bsp_child(role, where) -> None:
 # phase 6: the storage plane (file stores, stateless workers over shared roots)
 # ---------------------------------------------------------------------------
 
+# phases 6b and 8a: new tokens a request (64 until a slow host's run passed
+# the time limit: at 64, 8a's three runs took 66 s of phase 8's 87 s)
+SERVE_NEW_TOKENS = 16
 SERVE_WORKER_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--max-len", "1024",
-                     "--new-tokens", "64", "--lease-timeout", "2"]  # phase 6b
+                     "--new-tokens", str(SERVE_NEW_TOKENS), "--lease-timeout", "2"]  # phase 6b
 SHARED_REQUESTS = 16  # phase 6b: requests per run, prompts of 16-300 tokens
 # phase 6b: a worker exits after its queue stays empty this long, which must
 # outlast a dead peer's lease (2 s) and one reap period (2 s) or the
@@ -2035,8 +2168,10 @@ def child_main(role, args) -> int:
 
         os.environ["REPRO_FUSED_CE"] = "1"
         cfg = pickle.loads(bytes.fromhex(args[3]))
+        t0 = time.perf_counter()
         hist = elastic_run(cfg, args[0], int(args[1]), args[2])
-        print(json.dumps({"losses": [h["loss"] for h in hist]}), flush=True)
+        print(json.dumps({"losses": [h["loss"] for h in hist],
+                          "elastic_run_s": time.perf_counter() - t0}), flush=True)
     else:
         raise SystemExit(f"unknown child role {role!r}")
     return 0
@@ -2397,10 +2532,11 @@ def elastic_run(cfg, root, total_steps, device):
 
 def phase_elastic_resume(torch, np, port, dev, card):
     """6c: the elastic trainer resumed from a ``FileBackend`` root in a fresh
-    process.  Chunks 0 and 1 run here (versions 0-2 on disk); chunk 2 then
-    runs twice: here, from the state chunk 1 left in memory (the
-    uninterrupted run: the state never leaves the process), and in a child
-    process that starts from version 2 on disk.  The losses must be equal
+    process.  Chunk 0 runs here (versions 0 and 1 on disk; chunks 0 and 1
+    until the script needed the time); chunk 1 then runs twice: here, from
+    the state chunk 0 left in memory (the uninterrupted run: the state
+    never leaves the process), and in a child process that starts from
+    version 1 on disk.  The losses must be equal
     bit for bit.  -> this process's kernel launches."""
     import math
     import os
@@ -2430,13 +2566,13 @@ def phase_elastic_resume(torch, np, port, dev, card):
               f"GB, and {root} has {disk.free / 1e9:.1f} GB free")
         reset_counters(wrappers)
         t0 = time.perf_counter()
-        first = elastic_run(cfg, root, 4, dev)
+        first = elastic_run(cfg, root, 2, dev)
         t_first = time.perf_counter() - t0
         store = ObjectStore(backend=FileBackend(root))
-        keys = [k for k in store.list("ckpt/resume/v00000002/") if "/leaf/" in k]
+        keys = [k for k in store.list("ckpt/resume/v00000001/") if "/leaf/" in k]
         version_bytes = sum(os.path.getsize(store.backend._path(k)) for k in keys)
         # one version written and read back on its own
-        warm = el.WARM_CACHE[("resume", 2)]
+        warm = el.WARM_CACHE[("resume", 1)]
         t0 = time.perf_counter()
         ck.save(store, "probe", 0, tuple(warm))
         write_s = time.perf_counter() - t0
@@ -2446,19 +2582,20 @@ def phase_elastic_resume(torch, np, port, dev, card):
         read_s = time.perf_counter() - t0
         del back
         store.delete_prefix("ckpt/probe/")
-        # the uninterrupted run's chunk 2, from the warm state
-        tcfg = el.ElasticTrainConfig(run="resume", steps_per_chunk=2, total_steps=6)
+        # the uninterrupted run's chunk 1, from the warm state
+        tcfg = el.ElasticTrainConfig(run="resume", steps_per_chunk=2, total_steps=4)
         chunk = el.make_chunk_fn(cfg, opt, ObjectStore(), tcfg, batch_fn, dev)
         t0 = time.perf_counter()
-        cont = [chunk(2)]
+        cont = [chunk(1)]
         t_cont = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
         el.WARM_CACHE.clear()
         del warm, chunk
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rest = child_json(spawn_child("elastic", root, "6", str(dev), pickle.dumps(cfg).hex()),
-                          "the resuming process")["losses"]
+        resumed = child_json(spawn_child("elastic", root, "4", str(dev), pickle.dumps(cfg).hex()),
+                             "the resuming process")
+        rest = resumed["losses"]
         t_rest = time.perf_counter() - t0
         latest = ck.latest_version(store, "resume")
         store.backend.close()
@@ -2476,15 +2613,16 @@ def phase_elastic_resume(torch, np, port, dev, card):
         "d_model": cfg.d_model, "batch": 2, "seq": RESUME_SEQ, "steps_per_chunk": 2,
         "params": n, "disk_free_B": disk.free, "version_leaf_bytes": version_bytes,
         "version_write_s": write_s, "version_read_s": read_s,
-        "first_two_chunks_s": t_first, "warm_chunk_s": t_cont, "resume_process_s": t_rest,
+        "first_chunk_s": t_first, "warm_chunk_s": t_cont, "resume_process_s": t_rest,
+        "resume_elastic_run_s": resumed["elastic_run_s"],
         "warm_starts": [h["warm_start"] for h in cont],
         "losses_uninterrupted": whole_l, "losses_resumed": split_l, "latest_version": latest,
         "launches": launches, "card": card,
     })
     check(all(h["warm_start"] == 1.0 for h in cont), "the uninterrupted run reloaded its state")
-    check(len(whole_l) == 3 and split_l == whole_l,
+    check(len(whole_l) == 2 and split_l == whole_l,
           f"resumed losses {split_l} differ from the uninterrupted run's {whole_l}")
-    check(latest == 3, f"the resumed run ended at v{latest}, expected v3")
+    check(latest == 2, f"the resumed run ended at v{latest}, expected v2")
     check(launches["flash_attention"] > 0, "the elastic runs launched no flash kernel")
     return launches
 
@@ -2494,17 +2632,23 @@ def phase_elastic_resume(torch, np, port, dev, card):
 # ---------------------------------------------------------------------------
 
 WIRE_BUDGET_S = 150  # phase 8's wall time, all four parts
-WIRE_WAVES = (12, 4)  # 8a: requests submitted at once, then once the engine idles in blpop
+# 8a: its requests, and how many are submitted at once, then once the
+# engine idles in blpop (16 and (12, 4) until a slow host's 8a took 32.6 s)
+WIRE_REQUESTS, WIRE_WAVES = 8, (6, 2)
+# 8d: 7d's steps per worker halved (60 until the sanitizer: 8d took 4.7-7.5 s
+# of phase 8's 90.3-92.5 s without it and 13.3-16.5 s of 107.4-112.5 s with it)
+WIRE_PS_STEPS = PS_STEPS // 2
 # 8a's engine: 6b's workers' (SERVE_WORKER_ARGS), built by the serve CLI's build_engine
 WIRE_ENGINE = dict(arch="llama3-8b", reduced=False, device="cuda", batch=4, max_len=1024,
-                   new_tokens=64, decode_chunk=8, queues=1, lease_timeout=2.0,
+                   new_tokens=SERVE_NEW_TOKENS, decode_chunk=8, queues=1, lease_timeout=2.0,
                    cache_dtype="float32")
 DAEMON_TIMEOUT_S = 60  # a daemon's start or stop
 
 
 class Daemon:
     """The port's ``repro-kvd`` daemon (``python -m
-    repro_torch.storage.net_server``, its CLI) on a Unix socket under
+    repro_torch.storage.net_server``, its CLI, with ``REPRO_SANITIZE=1``:
+    the port's sanitizer instruments its stores) on a Unix socket under
     ``root``, SIGKILLable and restartable on the same root and address."""
 
     def __init__(self, root):
@@ -2521,7 +2665,8 @@ class Daemon:
             [sys.executable, "-m", "repro_torch.storage.net_server", "--root", self.data,
              "--uds", self.address[len("unix:"):], "--num-shards", str(KV_SHARDS),
              "--fsync", "never"],
-            env=src_env(), text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            env=dict(src_env(), REPRO_SANITIZE="1"), text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
         self._listening, t_listen = threading.Event(), []
         self._t_listen = t_listen
 
@@ -2674,8 +2819,9 @@ def phase_wire(torch, np, port, card, sort7b):
     """8: the port's ``repro-kvd`` daemon (its CLI, on a Unix socket) on the
     card's machine: 8a llama3-8b served over it (steady, then across a
     SIGKILL), 8b 7b's terasort, 8c 7c's adoption with the adopter reaching
-    the stores through their net specs, 8d 7d's HOGWILD!.  -> 8a's kernel
-    launches (the in-memory reference run, the two wire runs)."""
+    the stores through their net specs, 8d 7d's HOGWILD!; all of it, the
+    daemons and 8c's children under the port's runtime sanitizer.  -> 8a's
+    kernel launches (the in-memory reference run, the two wire runs)."""
     import argparse
     import contextlib
     import gc
@@ -2687,6 +2833,7 @@ def phase_wire(torch, np, port, card, sort7b):
     from repro_torch.launch import serve as serve_cli
 
     wrappers = {k: port["wrappers"][k] for k in ("decode_attention", "flash_attention")}
+    san = sanitized()
     root = tempfile.mkdtemp(prefix="chip-smoke-wire-")
     t_phase = time.perf_counter()
     # both daemons start now, while the engine is built and serves in memory
@@ -2699,7 +2846,7 @@ def phase_wire(torch, np, port, card, sort7b):
         build_s = time.perf_counter() - t0
         cfg = engine.cfg
         rng = np.random.default_rng(0)
-        lens = [int(n) for n in rng.integers(16, 301, size=SHARED_REQUESTS)]
+        lens = [int(n) for n in rng.integers(16, 301, size=WIRE_REQUESTS)]
         prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
         reset_counters(wrappers)
         kv, store = port["KVStore"](num_shards=KV_SHARDS), port["ObjectStore"]()
@@ -2763,7 +2910,7 @@ def phase_wire(torch, np, port, card, sort7b):
         adopted = run_adoption("net:" + pickle.dumps((kv, store)).hex(), "wire_adopt", card)
         kv.close()
         store.backend.close()
-        check(adopted["stores"] == ["NetKVStore", "NetBackend"]
+        check(adopted["stores"] == ["_SanitizedNetKVStore", "_SanitizedNetBackend"]
               and {"net_kv", "net_obj"} <= set(adopted["reconnected"]),
               f"8c: the adopter reached {adopted['stores']} via {adopted['reconnected']}")
 
@@ -2778,12 +2925,13 @@ def phase_wire(torch, np, port, card, sort7b):
                 kv_.close()
                 store_.backend.close()
 
-        run_hogwild(wire_executor, "wire_hogwild", card)
+        run_hogwild(wire_executor, "wire_hogwild", card, steps=WIRE_PS_STEPS)
     finally:
         for d in daemons:
             d.stop()
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t_phase
+    sanitizer_check("8", san, adopted["sanitizer"])
     emit({"phase": "wire", "wall_s": wall, "budget_s": WIRE_BUDGET_S,
           "daemon_start_s": [s_ for d in daemons for s_ in d.start_s], "clock": "host",
           "card": card})
@@ -2962,17 +3110,17 @@ def phase_dist(torch, port, dev, smi):
 # the no-mesh serving path against another tree (not a phase)
 # ---------------------------------------------------------------------------
 
-def serve_profile(root) -> int:
-    """``python3 chip_smoke.py serve-profile ROOT``: phase 3's llama3-8b
-    serve and decode-step profile, run by the ``chip_smoke.py`` of the tree
-    at ROOT on that tree's port (kernels built first)."""
+def load_tree(root):
+    """The ``chip_smoke.py`` of the tree at ROOT, its port loaded (this
+    process imports that tree's ``repro_torch``) and its kernels built.
+    -> (the module, what its `load_port` returns)"""
     import importlib.util
 
-    import numpy as np
     import torch
 
     spec = importlib.util.spec_from_file_location("tree_chip_smoke", Path(root) / "chip_smoke.py")
     tree = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = tree  # its functions pickle by reference (7d's gradient)
     spec.loader.exec_module(tree)
     port = tree.load_port()
     from repro_torch.kernels import _build
@@ -2980,6 +3128,17 @@ def serve_profile(root) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
+    return tree, port
+
+
+def serve_profile(root) -> int:
+    """``python3 chip_smoke.py serve-profile ROOT``: phase 3's llama3-8b
+    serve and decode-step profile, run by the ``chip_smoke.py`` of the tree
+    at ROOT on that tree's port (kernels built first)."""
+    import numpy as np
+    import torch
+
+    tree, port = load_tree(root)
     tree.phase_serve(torch, np, port, torch.device("cuda", 0), torch.cuda.get_device_name(0),
                      port["CONFIGS"]["llama3-8b"], ("decode_attention", "flash_attention"))
     return 0
@@ -3008,6 +3167,62 @@ def serve_ab(other_root, reps: int = 2) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit({"serve_ab": str(other), "nvidia_smi": smi, "step_ms": steps,
           "median_ms": {k: statistics.median(v) for k, v in steps.items()}})
+    return 0
+
+
+def bsp_wire(root) -> int:
+    """``python3 chip_smoke.py bsp-wire ROOT``: phases 7 and 8, run by the
+    ``chip_smoke.py`` of the tree at ROOT on that tree's port (kernels
+    built first)."""
+    import numpy as np
+    import torch
+
+    tree, port = load_tree(root)
+    card = torch.cuda.get_device_name(0)
+    tree.phase_wire(torch, np, port, card, tree.phase_bsp(card))
+    return 0
+
+
+# the rows `sanitize_ab` keeps of a `bsp_wire` run: phase -> its keys
+AB_ROWS = {
+    "bsp_word_count": ("wall_s",), "bsp_terasort": ("wall_s",), "bsp_adopt": ("wall_s",),
+    "bsp_hogwild": ("config", "wall_s"), "bsp": ("wall_s",), "wire_terasort": ("wall_s",),
+    "wire_adopt": ("wall_s",), "wire_hogwild": ("config", "wall_s"), "wire": ("wall_s",),
+    "sanitizer": ("part", "reports", "ops_seen", "children_ops_seen"),
+}
+
+
+def sanitize_ab(other_root, out_dir=None, reps: int = 1) -> int:
+    """``python3 chip_smoke.py sanitize-ab ROOT [OUT_DIR]``: phases 7 and 8
+    on this tree (under the port's runtime sanitizer) against the tree at
+    ROOT (the parent commit, unpacked with ``git archive``, which runs them
+    unsanitized), each in a fresh process, in the order ROOT, this, this,
+    ROOT (``reps`` times); prints each run's part times (8a: tokens/s and
+    TTFT p50 in memory, steady, across the kill), writes each run's whole
+    output to OUT_DIR (default ``build/sanitize_ab``), then prints the
+    card's name and power limit."""
+    here, other = Path(__file__).resolve().parent, Path(other_root).resolve()
+    out_dir = Path(out_dir) if out_dir else here / "build" / "sanitize_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, side in enumerate(["other", "this", "this", "other"] * reps):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "bsp-wire",
+                               str(other if side == "other" else here)],
+                              capture_output=True, text=True, timeout=900)
+        (out_dir / f"{i}-{side}.out").write_text(proc.stdout + "\n--- stderr\n" + proc.stderr)
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        parts = [{"phase": r["phase"], **{k: r[k] for k in AB_ROWS[r["phase"]]}}
+                 for r in rows if r.get("phase") in AB_ROWS]
+        serve = next((r for r in rows if r.get("phase") == "wire_serve"), None)
+        if serve is not None:
+            parts.append({"phase": "wire_serve", **{
+                run: [serve[run]["tok_per_s"], serve[run]["ttft_p50_s"]]
+                for run in ("in_memory", "steady", "kill")}})
+        emit({"side": side, "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+              "parts": parts})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit({"sanitize_ab": str(other), "nvidia_smi": smi})
     return 0
 
 
@@ -3058,6 +3273,10 @@ def main() -> int:
         return serve_profile(sys.argv[2])
     if len(sys.argv) > 2 and sys.argv[1] == "serve-ab":
         return serve_ab(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == "bsp-wire":
+        return bsp_wire(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == "sanitize-ab":
+        return sanitize_ab(*sys.argv[2:4])
     import numpy as np
     import torch
 

@@ -10,11 +10,22 @@ The library name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and an unchanged one is loaded as it is.  Builds happen
 at first use, never at import; :func:`build_all` starts one ``nvcc`` per
 source at once.  A build that fails raises with the compiler's output.
+
+Builds are safe across processes: each library has an exclusive ``flock``
+on ``<name>-<hash>.lock`` beside it, held from the check that the library
+exists through the compile to the ``os.replace`` that publishes it, and
+taken in sorted name order (so two callers cannot deadlock).  Any number
+of processes calling :func:`build_all` on one build directory run one
+``nvcc`` per kernel and source hash; the others wait and load its library.
+A compile that fails leaves no library, and its output in
+``<name>-<hash>.err``, which every caller that overlapped it raises with
+(a later call compiles again).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -43,9 +54,12 @@ def build_dir() -> Path:
 
 
 def nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else torch's CUDA home's, else ``nvcc`` on
+    the ``PATH``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    homes = [os.environ.get("CUDA_HOME"), CUDA_HOME]
+    cand = [os.path.join(h, "bin", "nvcc") for h in homes if h]
     cand.append(shutil.which("nvcc") or "")
     for c in cand:
         if c and os.path.exists(c):
@@ -60,34 +74,81 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+# names this process ran ``nvcc`` for, in order (tools/cold_build.py reads it)
+compiled: List[str] = []
+
+
+def _lock(lib: Path) -> int:
+    """Block on the exclusive lock of ``lib``'s build -> its fd (closing
+    it releases the lock)."""
+    fd = os.open(lib.with_suffix(".lock"), os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+    except BaseException:
+        os.close(fd)
+        raise
+    return fd
+
+
+# A failed build's ``.err`` younger than this when a call starts belongs to a
+# build the call overlapped (file times tick coarser than time.time()); an
+# older one is stale, and the call compiles again.
+_ERR_FRESH_S = 1.0
+
+
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every named kernel not yet built, one ``nvcc`` each, all
-    started together.  Returns seconds per name (0.0 where already built);
-    ``ptxas`` register/spill reports go to ``<name>.log`` beside the
-    library."""
+    started together, each under its library's lock (module docstring).
+    Returns seconds per name: 0.0 where already built, else until the
+    library was there (compiled here or by the process this one waited
+    for); ``ptxas`` register/spill reports go to ``<name>.log`` beside
+    the library."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    procs: List = []
-    t0 = time.perf_counter()
+    t0, started = time.perf_counter(), time.time() - _ERR_FRESH_S
     times: Dict[str, float] = {}
-    for name in names:
-        lib = _lib_path(name)
-        if lib.exists():
-            times[name] = 0.0
-            continue
-        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        procs.append((name, lib, tmp, p))
+    held: List[int] = []
+    procs: List = []
     errors = []
-    for name, lib, tmp, p in procs:
-        log, _ = p.communicate()
-        times[name] = time.perf_counter() - t0
-        (out / f"{name}.log").write_text(log)
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {name} (rc {p.returncode}):\n{log}")
-            continue
-        os.replace(tmp, lib)
+    try:
+        for name in sorted(set(names)):
+            lib = _lib_path(name)
+            if lib.exists():
+                times[name] = 0.0
+                continue
+            held.append(_lock(lib))
+            err = lib.with_suffix(".err")
+            if lib.exists():  # built by the process this one waited for
+                times[name] = time.perf_counter() - t0
+                continue
+            if err.exists() and err.stat().st_mtime >= started:  # that build failed
+                errors.append(err.read_text())
+                continue
+            err.unlink(missing_ok=True)
+            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            compiled.append(name)
+            procs.append((name, lib, tmp, err, p))
+        for name, lib, tmp, err, p in procs:
+            log, _ = p.communicate()
+            times[name] = time.perf_counter() - t0
+            (out / f"{name}.log").write_text(log)
+            if p.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                msg = f"nvcc failed for {name} (rc {p.returncode}):\n{log}"
+                err.write_text(msg)
+                errors.append(msg)
+                continue
+            os.replace(tmp, lib)
+    finally:
+        for _, _, tmp, _, p in procs:
+            if p.poll() is None:  # interrupted: stop the compiles this call started
+                p.kill()
+                p.wait()
+                tmp.unlink(missing_ok=True)
+        for fd in held:
+            os.close(fd)  # releases the flock
     if errors:
         raise RuntimeError("\n".join(errors))
     return times

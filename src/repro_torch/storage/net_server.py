@@ -741,6 +741,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         "--fsync", default="auto", choices=("auto", "commit", "batch", "never")
     )
     args = parser.parse_args(argv)
+    if os.environ.get("REPRO_SANITIZE") == "1":
+        from repro_torch.analysis.sanitizer import install
+
+        install()
     server = KVDServer(
         args.root,
         f"unix:{args.uds}" if args.uds else args.host,

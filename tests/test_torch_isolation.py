@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: nothing under src/repro_torch/ nor
-chip_smoke.py imports jax, the JAX package (`repro`) or cloudpickle (the
+"""The PyTorch port stands alone: nothing under src/repro_torch/, nor
+chip_smoke.py, nor the port's tools (``PORT_TOOLS``) imports jax, the JAX package (`repro`) or cloudpickle (the
 card's machine has none; the port's runtime ships callables with the
 standard pickle), not even inside a function body, and importing the
 port's entry points, its runtime, data pipeline, trainer and storage plane
@@ -19,7 +19,11 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "cloudpickle")
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's tools: its lint CLI, the cold-build race, the card's measurements
+PORT_TOOLS = ("reprolint_torch", "cold_build", "kernel_breakdown", "prefill_groups",
+              "cublas_workspace_ab")
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + [ROOT / "tools" / f"{name}.py" for name in PORT_TOOLS])
 
 
 def _forbidden(name: str) -> bool:
@@ -52,6 +56,8 @@ def test_port_entry_points_load_neither_jax_nor_repro():
         "import repro_torch.launch.train, repro_torch.train, repro_torch.core, repro_torch.data\n"
         "import repro_torch.storage, repro_torch.storage.file_kv, repro_torch.storage.inotify\n"
         "import repro_torch.storage.net_kv, repro_torch.storage.net_server\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.sanitizer\n"
+        "repro_torch.analysis.sanitizer.install()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

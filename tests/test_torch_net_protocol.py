@@ -541,12 +541,12 @@ def test_globals_without_a_twin_are_refused_by_name():
     (msg,) = dec.feed(_FRAME_HDR.pack(len(closure), zlib.crc32(closure)) + closure)
     assert isinstance(msg, tnet.UnresolvedMessage) and msg.msg[:3] == ("req", 1, "kv.eval")
     assert any(n.startswith("cloudpickle.") for n in msg.names)
-    from repro.analysis import lint as jlint  # noqa: F401  (no twin in the port)
+    from repro.analysis import roofline as jroof  # noqa: F401  (no twin in the port)
 
-    for i, obj in enumerate((jlint.lint_source, jnp.float32)):
+    for i, obj in enumerate((jroof.parse_collectives, jnp.float32)):
         (msg,) = dec.feed(jnet.encode_wire(("res", 10 + i, obj)))
         assert isinstance(msg, tnet.UnresolvedMessage), obj
-        assert msg.names[0].startswith(("repro.analysis.lint", "jax"))
+        assert msg.names[0].startswith(("repro.analysis.roofline", "jax"))
     assert dec.feed(jnet.encode_wire(("res", 3, "fine"))) == [("res", 3, "fine")]
 
 

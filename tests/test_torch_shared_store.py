@@ -374,6 +374,39 @@ def test_sigkilled_torch_worker_is_reserved_none_lost_none_duplicated(tmp_path):
     store.backend.close()
 
 
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_an_engine_killed_between_pop_and_lease_loses_what_it_popped(tmp_path, package):
+    """A behaviour of the reference, kept by the port (one protocol on
+    shared roots): ``lease_requests`` pops ids off the queue before its
+    lease ``eval_many``, so an engine SIGKILLed between the two leaves the
+    popped requests nowhere a survivor looks (not queued, no lease to
+    reap, no result).  A worker killed right after publishing, as the card
+    test of two workers does, can land there."""
+    if package == "jax":
+        from repro.serve import request_plane as plane
+
+        kv = JFileKVStore(str(tmp_path / "kv"), num_shards=2, fsync="never")
+        store = JObjectStore(backend=JFileBackend(str(tmp_path / "obj"), fsync="never"))
+    else:
+        plane = rp
+        kv = FileKVStore(str(tmp_path / "kv"), num_shards=2, fsync="never")
+        store = ObjectStore(backend=FileBackend(str(tmp_path / "obj"), fsync="never"))
+    ids = ["p0", "p1", "p2"]
+    for r in ids:
+        plane.submit(store, kv, r, [1, 2, 3])
+    popped = kv.lpop_n(plane.queue_key(0), 2, worker="victim")  # then the SIGKILL
+    assert popped == ["p0", "p1"]
+    assert plane.reap_expired(store, kv, now=time.time() + 60, worker="survivor") == 0
+    won = plane.lease_requests(store, kv, "survivor", 4, lease_timeout_s=60)
+    assert [r for r, _ in won] == ["p2"]
+    for r in popped:  # lost: no queue entry, lease or result names them
+        assert kv.get(plane.lease_key(r)) is None
+        assert not store.exists_many([plane.done_key(r)])
+    assert kv.lrange(plane.queue_key(0), 0, -1) == []
+    kv.close()
+    store.backend.close()
+
+
 # ---------------------------------------------------------------------------
 # 4. the serve CLI over shared roots
 # ---------------------------------------------------------------------------
