@@ -219,6 +219,15 @@ script exits non-zero:
    heads of 1024, bf16), bit-equal to the call on plain tensors, the mlstm
    counter > 0; each ``dist_*`` line with its seconds and the card's name
    and power limit.
+10. the dry-run's roofline against the card, in at most
+   ``ROOFLINE_BUDGET_S`` = 60 s: `repro_torch.launch.dryrun` counts, on
+   fake CPU tensors over a one-card ``AbstractMesh`` (no process group, no
+   launch), 5a's llama3-8b train step and phase 3's llama3-8b decode step
+   as this script ran them; each ``roofline`` line holds the compute,
+   memory and bound terms (the datasheet constants of
+   `repro_torch.analysis.roofline`) beside the measured step on the host
+   clock and its device-busy time, and decode's ``least_step_ms`` beside
+   the memory term; a bound above the device-busy time it bounds fails.
 
 ``python3 chip_smoke.py serve-ab ROOT`` runs no phase: it times phase
 3's llama3-8b decode step on this tree against the tree at ROOT (the
@@ -247,8 +256,6 @@ import threading
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
 BF16_ULP = 2.0 ** -7  # spacing of bfloat16 values in [1, 2)
 DECODE_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -269,6 +276,12 @@ LLAMA_CONSISTENCY_LAYERS = 1
 DEEPSEEK_CHECK_EXPERTS = 16  # phase 4e: routed experts of its MoE layer (fp32 on both devices)
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed launch
 GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 4, 32  # phases 3f/3g: `Engine.generate` rows, prompt, tokens
+
+
+# phase 10's inputs: phase 3's llama3-8b decode profile and 5a's train step
+MEASURED = {}
+ROOFLINE_BUDGET_S = 60  # phase 10
+DECODE_SLOT_LENS = (16, 300, 57, 128)  # the live slots of `profile_decode`
 
 
 def emit(obj) -> None:
@@ -333,8 +346,18 @@ def call_ms(torch, fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def hardware():
+    """The H100 SXM's datasheet constants, from the port's roofline (one
+    source): HBM_BW bytes/s, PEAK_FLOPS (dense bf16) and PEAK_FLOPS_FP32."""
+    from repro_torch.analysis import roofline
+
+    return roofline
+
+
 def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    hw = hardware()
+    peak = {"bfloat16": hw.PEAK_FLOPS, "float32": hw.PEAK_FLOPS_FP32}[dtype]
+    t_bytes, t_ops = nbytes / hw.HBM_BW, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -991,7 +1014,7 @@ def profile_decode(torch, np, eng, cfg, weight_bytes, state_bytes, n_steps=8):
     `step_profile`)."""
     rng = np.random.default_rng(1)
     eng.admit([(f"prof-{i}", rng.integers(0, cfg.vocab_size, size=n).tolist(), 10**6)
-               for i, n in enumerate((16, 300, 57, 128))])
+               for i, n in enumerate(DECODE_SLOT_LENS)])
     eng.step_chunk(2)
     step_profile(torch, cfg, lambda: eng.step_chunk(n_steps), n_steps, weight_bytes, state_bytes)
 
@@ -1016,18 +1039,21 @@ def step_profile(torch, cfg, run, n_steps, weight_bytes, state_bytes=0, cross_by
     t0 = time.perf_counter()
     ev, busy_ms, top = device_summary(prof, n_steps)
     summary_s = time.perf_counter() - t0
-    emit({
+    hbm = hardware().HBM_BW
+    row = {
         "phase": "serve_profile", "arch": cfg.name, "live_slots": 4, "steps": n_steps,
         "profiler_saw_device": bool(ev),
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
         "device_launches_per_step": sum(e.count for e in ev) / n_steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-        "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
-        "state_bound_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
-        "cross_cache_bound_ms": cross_bytes / HBM_BYTES_PER_S * 1e3,
-        "least_step_ms": (weight_bytes + 2 * state_bytes + cross_bytes) / HBM_BYTES_PER_S * 1e3,
+        "weights_bound_ms": weight_bytes / hbm * 1e3,
+        "state_bound_ms": 2 * state_bytes / hbm * 1e3,
+        "cross_cache_bound_ms": cross_bytes / hbm * 1e3,
+        "least_step_ms": (weight_bytes + 2 * state_bytes + cross_bytes) / hbm * 1e3,
         "top_device_ms_per_step": top, "profile_summary_s": summary_s,
-    })
+    }
+    emit(row)
+    MEASURED.setdefault(f"{cfg.name}-decode", row)  # phase 10 reads phase 3's
 
 
 DeviceEvents = collections.namedtuple("DeviceEvents", "key self_device_time_total count")
@@ -1497,6 +1523,9 @@ def phase_train_step(torch, np, port, dev, card, cfg):
         for undo in undos:
             undo()
     peak = torch.cuda.max_memory_allocated()
+    MEASURED.setdefault(f"{cfg.name}-train", {  # phase 10 reads 5a's
+        "step_s": rows[-2]["step_s"], "device_busy_ms": rows[-1]["device_busy_ms"],
+        "batch": batch_rows, "seq": seq})
     n_params = sum(t.numel() for t in port["tree_flatten"](state.params)[0])
     names = [path.rsplit(".", 1)[-1] for path in param_paths(port, state.params)]
     named = {name: [nonzero[i] for i, n in enumerate(names) if n == name]
@@ -3226,6 +3255,86 @@ def sanitize_ab(other_root, out_dir=None, reps: int = 1) -> int:
     return 0
 
 
+def phase_roofline(torch, port, smi):
+    """Phase 10: the dry-run's count (`repro_torch.launch.dryrun`) of two
+    llama3-8b programs at full width and depth, exactly as this script ran
+    them, on a one-card ``AbstractMesh((1, 1))`` with no process group:
+    5a's train step (bf16, int8 moments, remat, the fused CE, the in-place
+    update) and phase 3's decode step (4 live slots of a 1024-row fp32
+    cache, each at its own length).  The count runs the port's program on
+    fake CPU tensors (the kernels' plain versions compute each kernel's
+    result; no launch, no allocation); a kernel's bytes are its operands
+    and results, decode attention's cache to each slot's length.  Each
+    program's roofline terms beside the step the script measured on both
+    clocks; a bound above the device-busy time it bounds means the count
+    is wrong."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.sharding import AbstractMesh
+
+    rl = hardware()
+    t_phase = time.perf_counter()
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    cfg, tr, wrappers = port["CONFIGS"]["llama3-8b"], port["train"], port["wrappers"]
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    train, decode = MEASURED["llama3-8b-train"], MEASURED["llama3-8b-decode"]
+    total_p, active_p = cfg.param_count()
+    rows = []
+    for program, measured in (("train", train), ("decode", decode)):
+        t0 = time.perf_counter()
+        if program == "train":
+            B, S = train["batch"], train["seq"]
+            opt = tr.adamw(tr.cosine_schedule(3e-4, warmup=1, total=100), quantize_moments=True)
+            count = dryrun.count_program(cfg, "train", B, S, [mesh], opt=opt, remat=True,
+                                         fused_ce=True, inplace=True)
+            tokens, host_s, busy_s = B * S, measured["step_s"], measured["device_busy_ms"] / 1e3
+        else:
+            B, S = len(DECODE_SLOT_LENS), 1024
+            count = dryrun.count_program(cfg, "decode", B, S, [mesh],
+                                         cache_dtype=torch.float32,
+                                         cache_len=list(DECODE_SLOT_LENS))
+            tokens = B
+            host_s = measured["step_ms"] / 1e3
+            busy_s = measured["device_busy_ms_per_step"] / 1e3
+        count_s = time.perf_counter() - t0
+        roof = rl.Roofline(
+            arch=cfg.name, shape=f"chip_smoke {program} {B}x{S}", mesh="1x1", n_devices=1,
+            hlo_flops_per_device=count.flops, hlo_bytes_per_device=count.bytes,
+            collective_bytes_per_device=0.0,
+            model_flops=rl.model_flops_per_step(total_p, active_p, tokens,
+                                                "train" if program == "train" else "serve"),
+            memory_stats=count.memory["1x1"],
+        ).finalize()
+        d = roof.to_dict()
+        row = {
+            "phase": "roofline", "program": program, "card": smi, "batch": B, "seq": S,
+            "flops": count.flops, "bytes": count.bytes, "aten_ops": count.ops,
+            "compute_s": d["compute_s"], "memory_s": d["memory_s"],
+            "step_bound_s": d["step_bound_s"], "dominant": d["dominant"],
+            "measured_host_s": host_s, "measured_device_busy_s": busy_s,
+            "host_over_bound": host_s / d["step_bound_s"],
+            "busy_over_bound": busy_s / d["step_bound_s"],
+            "argument_bytes": d["memory_stats"]["argument_bytes"], "count_s": count_s,
+            "flops_counted": dryrun.FLOPS_COUNTED, "bytes_counted": dryrun.BYTES_COUNTED,
+        }
+        if program == "decode":
+            row["least_step_ms"] = measured["least_step_ms"]
+            row["memory_ms_over_least_step_ms"] = d["memory_s"] * 1e3 / measured["least_step_ms"]
+        emit(row)
+        rows.append(row)
+    elapsed = time.perf_counter() - t_phase
+    emit({"phase": "roofline_summary", "card": smi, "seconds": elapsed,
+          "budget_s": ROOFLINE_BUDGET_S})
+    after = {name: fn.launches for name, fn in wrappers.items()}
+    check(after == before, f"the dry-run's count launched kernels: {before} -> {after}")
+    for r in rows:
+        check(r["step_bound_s"] > 0 and math.isfinite(r["step_bound_s"]),
+              f"{r['program']}: bound {r['step_bound_s']}")
+        check(r["step_bound_s"] <= r["measured_device_busy_s"],
+              f"{r['program']}: the roofline bound {r['step_bound_s']:.6f} s exceeds the "
+              f"device-busy time {r['measured_device_busy_s']:.6f} s it bounds")
+    check(elapsed <= ROOFLINE_BUDGET_S, f"phase 10 took {elapsed:.1f} s > {ROOFLINE_BUDGET_S} s")
+
+
 def load_port():
     """The port's modules and functions the phases use, by name."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -3393,6 +3502,8 @@ def main() -> int:
     lap("8 the repro-kvd wire tier")
     launches.update(phase_dist(torch, port, dev, smi))
     lap("9 sharded execution on a one-card mesh")
+    phase_roofline(torch, port, smi)
+    lap("10 the dry-run's roofline against the card")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),

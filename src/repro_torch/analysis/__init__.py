@@ -1,14 +1,15 @@
-"""Analysis tooling: the ``reprolint`` invariant checker and the runtime
-sanitizer (copies of the JAX package's ``repro.analysis.lint`` and
-``repro.analysis.sanitizer``), with the sanitizer's pytest plugin.
+"""Analysis tooling: roofline modeling, the ``reprolint`` invariant
+checker, and the runtime sanitizer (twins of the JAX package's
+``repro.analysis``), with the sanitizer's pytest plugin.
 
 ``lint`` and ``sanitizer`` are imported lazily (via ``__getattr__``), as in
-the JAX package.  The JAX package's ``analysis`` also holds the roofline
-model and the report, which it imports eagerly; the port has no twin of
-them yet, so this package leaves them out.
+the JAX package, so importing :mod:`repro_torch.analysis` for roofline work
+never pays for them, and vice versa.
 """
 
-__all__ = ["lint", "sanitizer"]
+from . import roofline
+
+__all__ = ["roofline", "lint", "sanitizer"]
 
 
 def __getattr__(name: str):

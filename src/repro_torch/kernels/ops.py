@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.util import is_dtensor
+from repro_torch.util import is_dtensor, observer
 
 from . import ref
 from ._build import PlainBackwardFn
@@ -84,23 +84,63 @@ _ROLES = {
 }
 
 
+def local_split(shapes, roles, lead_split, sizes):
+    """Which mesh axes a kernel keeps split on its local shards: the lead
+    input's ``lead_split`` ({axis: "b" or "h"}, the role of the dim each
+    axis splits) kept where it divides every input's dim of that role
+    (``shapes`` and ``roles`` per input, ``sizes`` {axis: size}).  Grouped
+    heads split with the heads where the axes divide them; where they do
+    not but each rank's heads read one group (GQA with tp above the KV
+    heads) they stay whole and each rank takes its own group locally.
+    -> (``{axis: role}``, whole_groups).  `_local_launch` calls it on
+    DTensor placements, the dry-run on abstract layouts."""
+    split = dict(lead_split)
+
+    def ways(role) -> int:
+        return math.prod(sizes[a] for a, r in split.items() if r == role)
+
+    for role in ("b", "h"):
+        if any(s[r.index(role)] % ways(role) for s, r in zip(shapes, roles) if role in r):
+            split = {a: r for a, r in split.items() if r != role}
+    whole_groups = False
+    groups = [s[r.index("g")] for s, r in zip(shapes, roles) if "g" in r]
+    if "h" in split.values() and groups:
+        H, G, n = shapes[0][roles[0].index("h")], groups[0], ways("h")
+        if G % n:
+            if (H // G) % (H // n):
+                split = {a: r for a, r in split.items() if r != "h"}
+            else:
+                whole_groups = True
+    return split, whole_groups
+
+
+def split_dim(r, axis, split, whole_groups) -> Optional[int]:
+    """The dim of an input or output with roles ``r`` that ``axis`` splits
+    on the local call, or None where it is replicated."""
+    role = split.get(axis)
+    if role is None:
+        return None
+    if role in r:
+        return r.index(role)
+    if role == "h" and "g" in r and not whole_groups:
+        return r.index("g")
+    return None
+
+
 def _local_launch(call, name: str, tensors, n_out: int = 1):
     """``call(*tensors)`` on each rank's local shards through ``local_map``,
     for inputs that are DTensors, so each kernel runs on its shard as it
     runs on one card.
 
-    The first input (q, x) decides what stays split: batch over the mesh
-    dims that shard its batch, heads over those that shard its heads
-    (where they divide every input's dim of that role).  Grouped heads
-    split with the heads where the mesh divides them; where it does not
-    but each rank's heads read one group (GQA with tp above the KV heads)
-    they stay whole and each rank takes its own group in the local call.
-    Every other dim is replicated first by ``local_map``'s redistribution:
-    attention's Sq and Sk, a sequence-sharded decode cache, the SSD's and
-    the mLSTM's sequence (each kernel reduces or scans along it), and any
-    partial sum.  An input whole along a split it does not take (the SSD's
-    A and D under a batch split, a group taken per rank) gets a partial
-    gradient from each rank."""
+    The first input (q, x) decides what stays split (:func:`local_split`):
+    batch over the mesh dims that shard its batch, heads over those that
+    shard its heads.  Every other dim is replicated first by
+    ``local_map``'s redistribution: attention's Sq and Sk, a
+    sequence-sharded decode cache, the SSD's and the mLSTM's sequence
+    (each kernel reduces or scans along it), and any partial sum.  An
+    input whole along a split it does not take (the SSD's A and D under a
+    batch split, a group taken per rank) gets a partial gradient from each
+    rank."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -113,39 +153,28 @@ def _local_launch(call, name: str, tensors, n_out: int = 1):
     roles = [in_roles[i] for i in present]
 
     lead, lead_roles = args[0], roles[0]
-    split = {m: lead_roles[p.dim] for m, p in enumerate(lead.placements)
-             if isinstance(p, Shard) and lead_roles[p.dim] in ("b", "h")}
-
-    def ways(role) -> int:
-        return math.prod(mesh.size(m) for m, r in split.items() if r == role)
-
-    for role in ("b", "h"):
-        if any(t.shape[r.index(role)] % ways(role) for t, r in zip(args, roles) if role in r):
-            split = {m: r for m, r in split.items() if r != role}
-    h_dims = sorted(m for m, r in split.items() if r == "h")
+    split, whole_groups = local_split(
+        [tuple(t.shape) for t in args], roles,
+        {m: lead_roles[p.dim] for m, p in enumerate(lead.placements)
+         if isinstance(p, Shard) and lead_roles[p.dim] in ("b", "h")},
+        {m: mesh.size(m) for m in range(mesh.ndim)})
     group = None  # the KV group each rank takes, where groups stay whole
-    groups = [t.shape[r.index("g")] for t, r in zip(args, roles) if "g" in r]
-    if h_dims and groups:
-        H, G, n = lead.shape[lead_roles.index("h")], groups[0], ways("h")
-        if G % n:
-            if (H // G) % (H // n):
-                split = {m: r for m, r in split.items() if r != "h"}
-            else:
-                coord, rank = mesh.get_coordinate(), 0
-                for m in h_dims:
-                    rank = rank * mesh.size(m) + coord[m]
-                group = rank * (H // n) // (H // G)
-
-    def takes(r, m) -> bool:
-        return m in split and (split[m] in r or (split[m] == "h" and "g" in r and group is None))
+    if whole_groups:
+        H, G = lead.shape[lead_roles.index("h")], next(
+            t.shape[r.index("g")] for t, r in zip(args, roles) if "g" in r)
+        h_dims = sorted(m for m, r in split.items() if r == "h")
+        coord, rank, n = mesh.get_coordinate(), 0, 1
+        for m in h_dims:
+            rank, n = rank * mesh.size(m) + coord[m], n * mesh.size(m)
+        group = rank * (H // n) // (H // G)
 
     def places(r):
-        return [Shard(r.index(split[m]) if split[m] in r else r.index("g")) if takes(r, m)
-                else Replicate() for m in range(mesh.ndim)]
+        dims = [split_dim(r, m, split, whole_groups) for m in range(mesh.ndim)]
+        return [Replicate() if d is None else Shard(d) for d in dims]
 
     in_pl = tuple(places(r) for r in roles)
-    grad_pl = tuple([Partial() if m in split and not takes(r, m) else p
-                     for m, p in enumerate(pl)] for pl, r in zip(in_pl, roles))
+    grad_pl = tuple([Partial() if m in split and isinstance(p, Replicate) else p
+                     for m, p in enumerate(pl)] for pl in in_pl)
     out_pl = tuple(places(r) for r in out_roles[:n_out])
 
     def local_call(*local):
@@ -165,9 +194,14 @@ def _launch(kernel, plain, kw, *tensors, name: str, n_out: int = 1):
     if any(is_dtensor(t) for t in tensors):
         return _local_launch(lambda *local: _launch(kernel, plain, kw, *local, name=name),
                              name, tensors, n_out)
-    if plain is not None and _grad_on_card(*tensors):
-        return PlainBackwardFn.apply(kernel, plain, kw, *tensors)
-    return kernel(*tensors, **kw)
+
+    def run():
+        if plain is not None and _grad_on_card(*tensors):
+            return PlainBackwardFn.apply(kernel, plain, kw, *tensors)
+        return kernel(*tensors, **kw)
+
+    obs = observer()
+    return run() if obs is None else obs.launch(name, tensors, kw, run, True)
 
 
 def attention_chunked(
@@ -317,6 +351,9 @@ def ssd_decode_step(
     args = (state, x_t, dt_t, A, B_t, C_t, D)
     if any(is_dtensor(t) for t in args):
         return _local_launch(_ssd_decode_step, "ssd_decode_step", args, n_out=2)
+    obs = observer()
+    if obs is not None:
+        return obs.launch("ssd_decode_step", args, {}, lambda: _ssd_decode_step(*args), False)
     return _ssd_decode_step(*args)
 
 

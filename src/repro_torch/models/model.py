@@ -100,14 +100,12 @@ def init_params(
 
 def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     table = p["embed"]["tok"]
-    if is_dtensor(table):
-        # a mesh: the vocab-parallel lookup (each rank its vocab shard, the
-        # rows summed) over every token, where XLA partitions JAX's take;
-        # DTensor's embedding mis-masks tokens sharded over another mesh
-        # dim (torch 2.13), and its backward of indexing fails (2.11)
-        h = F.embedding(shard(tokens, *([None] * tokens.dim())), table)
-    else:
-        h = table[tokens]
+    # on a mesh every token is replicated for the vocab-parallel lookup
+    # (each rank its vocab shard, the rows summed), where XLA partitions
+    # JAX's take; DTensor's embedding mis-masks tokens sharded over another
+    # mesh dim (torch 2.13), and its backward of indexing fails (2.11)
+    tokens = shard(tokens, *([None] * tokens.dim()))
+    h = F.embedding(tokens, table) if is_dtensor(table) else table[tokens]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
     return h

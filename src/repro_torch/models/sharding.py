@@ -27,6 +27,11 @@ DTensor arithmetic as replicated.  :func:`shard` and
 :func:`residual_shard` return their input unchanged when no mesh is
 ambient, and importing this module does not import
 ``torch.distributed.tensor``.
+
+With no mesh, an observer set by `repro_torch.util.observe` sees every
+constraint site (``shard``, ``residual_shard``, ``placed_like``) on plain
+tensors: the dry-run (`repro_torch.launch.dryrun`) prices from these what
+a mesh would move.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import os
 import re
 from typing import Any, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
-from repro_torch.util import is_dtensor, tree_map_with_path
+from repro_torch.util import is_dtensor, observer, tree_map_with_path
 
 DP = "dp"  # data-parallel / FSDP logical axis -> ("pod","data") subset
 TP = "tp"  # tensor/expert-parallel logical axis -> "model"
@@ -180,6 +185,8 @@ def shard(x, *logical):
     (JAX's ``with_sharding_constraint``); with no mesh, or a plain tensor,
     ``x`` itself."""
     mesh = _MESH.get()
+    if mesh is None and observer() is not None:
+        observer().shard(x, logical)
     if mesh is None or not is_dtensor(x):
         return x
     if len(logical) != x.ndim:
@@ -192,6 +199,8 @@ def residual_shard(x):
     """Constraint for the (B, S, D) residual stream between blocks: batch
     over dp, and — under sequence parallelism — S over tp."""
     mesh = _MESH.get()
+    if mesh is None and x.ndim == 3 and observer() is not None:
+        observer().residual(x)
     if mesh is None or x.ndim != 3:
         return x
     tp_ax = physical_axes(mesh, TP)
@@ -207,6 +216,8 @@ def placed_like(x, ref):
     write, where both are DTensors; otherwise ``x``.  DTensor keeps an
     in-place op's destination placements and refuses a source that would
     change them, where JAX returns a new array."""
+    if observer() is not None and _MESH.get() is None:
+        observer().placed_like(x, ref)
     if is_dtensor(ref) and is_dtensor(x) and tuple(x.placements) != tuple(ref.placements):
         return x.redistribute(ref.device_mesh, ref.placements)
     return x

@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.util import scope
 
 from . import attention as attn
 from . import mamba2 as mb
@@ -42,11 +43,13 @@ from .sharding import residual_shard
 
 
 def _call(fn, remat: bool, *args, **kw):
-    """``fn(*args, **kw)``; under ``remat`` recomputed in the backward pass
-    from its inputs instead of saving its activations."""
-    if not remat:
-        return fn(*args, **kw)
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
+    """``fn(*args, **kw)``, in the scope "layer" (`util.scope`); under
+    ``remat`` recomputed in the backward pass from its inputs instead of
+    saving its activations."""
+    with scope("layer"):
+        if not remat:
+            return fn(*args, **kw)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def layer_period(cfg: ModelConfig) -> int:

@@ -1,9 +1,12 @@
 """Tree helpers for nested dict/list/tuple containers of leaves (the port's
-stand-in for `jax.tree_util` on parameter and cache trees)."""
+stand-in for `jax.tree_util` on parameter and cache trees), and the hooks
+an observer of a run sees (:func:`observe`, :func:`scope`)."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+import contextlib
+import contextvars
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 
 def tree_flatten(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> Tuple[List[Any], Any]:
@@ -77,3 +80,47 @@ def is_dtensor(x: Any) -> bool:
 
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+# ---------------------------------------------------------------------------
+# observation: what a run with no mesh would do on one (`launch.dryrun`)
+# ---------------------------------------------------------------------------
+
+_OBSERVER: contextvars.ContextVar = contextvars.ContextVar("repro_torch_observer", default=None)
+_SCOPES: contextvars.ContextVar = contextvars.ContextVar("repro_torch_scopes", default=())
+
+
+@contextlib.contextmanager
+def observe(obs) -> Iterator[Any]:
+    """Make ``obs`` see the body's constraint sites and kernel calls where
+    no mesh is ambient: ``obs.shard(x, logical)``, ``obs.residual(x)``,
+    ``obs.placed_like(x, ref)`` (`models.sharding`) and
+    ``obs.launch(name, tensors, kw, run, kernel)`` (`kernels.ops`, which
+    returns ``run()``).  Each site still computes what it computes
+    unobserved."""
+    token = _OBSERVER.set(obs)
+    try:
+        yield obs
+    finally:
+        _OBSERVER.reset(token)
+
+
+def observer():
+    """The observer of the innermost :func:`observe`, or None."""
+    return _OBSERVER.get()
+
+
+@contextlib.contextmanager
+def scope(name: str) -> Iterator[None]:
+    """Mark the body as running inside ``name`` (a model layer) for
+    :func:`scopes`."""
+    token = _SCOPES.set(_SCOPES.get() + (name,))
+    try:
+        yield
+    finally:
+        _SCOPES.reset(token)
+
+
+def scopes() -> Tuple[str, ...]:
+    """The names of the enclosing scopes (:func:`scope`), outermost first."""
+    return _SCOPES.get()

@@ -15,6 +15,12 @@ same weights (seed 0) and inputs: logits within 2e-5 (the fp32 attention
 bar of `tests/test_kernels.py`), gradients within 1e-5, greedy tokens
 identical.  Parameters, batches, caches and train states are placed by the
 port's rules (`models.sharding.param_sharding`, `launch.shardings`).
+
+The ``*_collectives`` cases run one train step (llama3, olmoe, zamba2) or
+one decode step (llama3) on the (2, 2) mesh under ``CommDebugMode`` and
+record every collective; `test_dryrun_collectives_beside_dtensor` sets
+the dry-run's count of the same step beside it (see the comment above
+it: the two are not equal).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 WORLD = 4
-TIMEOUT_S = 90
+TIMEOUT_S = 150
 CASES = (
     "mesh_constructors",
     "llama_forward_and_grads",
@@ -41,7 +47,22 @@ CASES = (
     "zamba2_forward_and_grads",
     "xlstm_forward",
     "llama_gqa_tp_above_kv_heads",
+    "llama_train_step_collectives",
+    "llama_decode_step_collectives",
+    "olmoe_train_step_collectives",
+    "zamba2_train_step_collectives",
 )
+# the cases whose collectives the dry-run's count is held to (rank 0's
+# record, ``collectives_<case>.json`` in the spawn's output directory)
+COLLECTIVE_CASES = {
+    "llama_train_step_collectives": ("llama3-8b", "train"),
+    "llama_decode_step_collectives": ("llama3-8b", "decode"),
+    "olmoe_train_step_collectives": ("olmoe-1b-7b", "train"),
+    "zamba2_train_step_collectives": ("zamba2-1.2b", "train"),
+}
+TRAIN_B, TRAIN_S = 4, 8  # the batch of the collective cases' train step
+DECODE_B, DECODE_S, DECODE_LEN = 4, 16, 3  # their decode step: rows, cache length, position
+OUT_DIR = None  # the spawn's output directory, set in each rank
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +223,85 @@ def case_llama_gqa_tp_above_kv_heads():
     assert cache["decoder"][0]["k"].placements == (Shard(0), Shard(1))
 
 
+_FUNCOLS = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+            "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+
+
+def _record_collectives(arch, kind):
+    """One train step (remat, AdamW with bf16 moments) or one decode step of
+    ``arch`` on the (2, 2) mesh under ``CommDebugMode``, whose record this
+    extends by each collective's result bytes and the port's innermost
+    frame: rank 0 writes {op: [count, result bytes]} and {site: {op:
+    count}} for the test to hold the dry-run's count to."""
+    import traceback as tb
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.shardings import batch_pspec, cache_pspec, state_pspec
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.sharding import param_pspec, use_mesh
+    from repro_torch.train import TrainState, adamw, make_train_step
+
+    ops, sites = {}, {}
+
+    class Recording(CommDebugMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            name = _FUNCOLS.get(getattr(func, "__name__", "").split(".")[0])
+            if name is not None and isinstance(out, torch.Tensor):
+                c = ops.setdefault(name, [0, 0])
+                c[0] += 1
+                c[1] += out.numel() * out.element_size()
+                frames = [f for f in tb.extract_stack() if "repro_torch" in f.filename]
+                site = (f"{os.path.basename(frames[-1].filename)}:{frames[-1].name}"
+                        if frames else "?")
+                by = sites.setdefault(site, {})
+                by[name] = by.get(name, 0) + 1
+            return out
+
+    cfg, mesh = _cfg(arch), _mesh(2, 2)
+    p = _params(cfg)
+    if kind == "train":
+        opt = adamw(1e-4, moment_dtype=torch.bfloat16)
+        state = TrainState(p, opt.init(p))
+        state = _place(state, mesh, state_pspec(mesh, state))
+        tokens = _tokens(cfg, TRAIN_B, TRAIN_S + 1)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = _place(batch, mesh, batch_pspec(mesh, batch))
+        step = make_train_step(cfg, opt, remat=True, fused_ce=False)
+        with use_mesh(mesh), Recording():
+            step(state, batch)
+    else:
+        params = _place(p, mesh, param_pspec(mesh, p))
+        cache = init_cache(cfg, DECODE_B, DECODE_S, torch.float32, "cpu")
+        cache = _place(cache, mesh, cache_pspec(mesh, cfg, cache))
+        toks = {"tokens": _tokens(cfg, DECODE_B, 1)}
+        toks = _place(toks, mesh, batch_pspec(mesh, toks))["tokens"]
+        with torch.no_grad(), use_mesh(mesh), Recording():
+            decode_step(params, cfg, toks, cache, DECODE_LEN)
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        with open(os.path.join(OUT_DIR, f"collectives_{arch}_{kind}.json"), "w") as f:
+            json.dump({"ops": ops, "sites": sites}, f)
+
+
+def case_llama_train_step_collectives():
+    _record_collectives("llama3-8b", "train")
+
+
+def case_llama_decode_step_collectives():
+    _record_collectives("llama3-8b", "decode")
+
+
+def case_olmoe_train_step_collectives():
+    _record_collectives("olmoe-1b-7b", "train")
+
+
+def case_zamba2_train_step_collectives():
+    _record_collectives("zamba2-1.2b", "train")
+
+
 # ---------------------------------------------------------------------------
 # the spawn
 # ---------------------------------------------------------------------------
@@ -212,7 +312,9 @@ def rank_main(cases, argv) -> None:
     output directory."""
     import torch.distributed as dist
 
+    global OUT_DIR
     rank, port, out_dir = int(argv[0]), int(argv[1]), argv[2]
+    OUT_DIR = out_dir
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=WORLD)
@@ -279,8 +381,13 @@ def check_case(results, case) -> None:
 
 
 @pytest.fixture(scope="module")
-def results(tmp_path_factory):
-    return run_ranks(os.path.abspath(__file__), tmp_path_factory.mktemp("ranks"))
+def ranks_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("ranks")
+
+
+@pytest.fixture(scope="module")
+def results(ranks_dir):
+    return run_ranks(os.path.abspath(__file__), ranks_dir)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -290,3 +397,56 @@ def test_sharded(results, case):
 
 if __name__ == "__main__":
     rank_main({name: globals()["case_" + name] for name in CASES}, sys.argv[1:])
+
+
+# The dry-run's count of each collective case's step on
+# ``AbstractMesh((2, 2))`` is not DTensor's on the gloo mesh: the dry-run
+# prices an FSDP + Megatron program at the port's constraint sites
+# (parameter gathers per use, one tensor-parallel reduction per
+# row-parallel product, the sites' redistributions), while DTensor picks
+# each op's placements by its own cost model: it gathers weights over both
+# mesh dims, reduce-scatters the partial sums that reach an RMSNorm and
+# gathers them back, re-lays residual adds, and gloo runs an all-to-all as
+# an all-gather.  So the dry-run keeps its collective term out of every
+# cell's bound (``collective_in_bound`` false).  What holds, and is held
+# here: both move data, every op kind the dry-run prices DTensor issues
+# too, and the dry-run's wire bytes do not exceed DTensor's.  Both counts
+# are printed; their differences by site are in PERF.md and ROADMAP.md
+# Queue 3.
+
+
+def _dryrun_collectives(arch, kind):
+    from repro_torch.launch import dryrun
+    from repro_torch.models.sharding import AbstractMesh
+
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    if kind == "train":
+        count = dryrun.count_program(_cfg(arch), kind, TRAIN_B, TRAIN_S, [mesh], fused_ce=False)
+    else:
+        count = dryrun.count_program(_cfg(arch), kind, DECODE_B, DECODE_S, [mesh],
+                                     cache_dtype=torch.float32, cache_len=DECODE_LEN)
+    stats = count.collectives["2x2"]
+    assert set(stats.by_link) <= {"nvlink"}, stats.by_link  # 4 GPUs lie in one node
+    return {op: [n, round(stats.by_op[op])] for op, n in sorted(stats.counts.items())}
+
+
+@pytest.mark.parametrize("case", list(COLLECTIVE_CASES))
+def test_dryrun_collectives_beside_dtensor(results, ranks_dir, case):
+    from repro_torch.analysis import roofline as rl
+
+    check_case(results, case)
+    arch, kind = COLLECTIVE_CASES[case]
+    record = json.loads((ranks_dir / f"collectives_{arch}_{kind}.json").read_text())
+    dryrun = _dryrun_collectives(arch, kind)
+    # every group of the (2, 2) mesh is one mesh dim of 2 ranks
+    dtensor = {op: [n, round(rl.ring_wire_bytes(op, b / n, 2) * n)]
+               for op, (n, b) in sorted(record["ops"].items())}
+    print(f"{case}: op, DTensor [count, wire bytes], dry-run [count, wire bytes]")
+    for op in sorted(set(dtensor) | set(dryrun)):
+        print(f"  {op}: {dtensor.get(op)} {dryrun.get(op)}")
+    print("  DTensor by site:", record["sites"])
+    assert dtensor and dryrun, (dtensor, dryrun)
+    assert set(dryrun) <= set(dtensor), (dryrun, dtensor)
+    total = {name: sum(b for _, b in side.values())
+             for name, side in (("dtensor", dtensor), ("dryrun", dryrun))}
+    assert total["dryrun"] <= total["dtensor"], total

@@ -57,6 +57,8 @@ def test_port_entry_points_load_neither_jax_nor_repro():
         "import repro_torch.storage, repro_torch.storage.file_kv, repro_torch.storage.inotify\n"
         "import repro_torch.storage.net_kv, repro_torch.storage.net_server\n"
         "import repro_torch.analysis.lint, repro_torch.analysis.sanitizer\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hillclimb\n"
+        "import repro_torch.analysis.roofline, repro_torch.analysis.report\n"
         "repro_torch.analysis.sanitizer.install()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"

@@ -541,12 +541,14 @@ def test_globals_without_a_twin_are_refused_by_name():
     (msg,) = dec.feed(_FRAME_HDR.pack(len(closure), zlib.crc32(closure)) + closure)
     assert isinstance(msg, tnet.UnresolvedMessage) and msg.msg[:3] == ("req", 1, "kv.eval")
     assert any(n.startswith("cloudpickle.") for n in msg.names)
-    from repro.analysis import roofline as jroof  # noqa: F401  (no twin in the port)
+    # no module of that name in the port: the Pallas mLSTM's twin is
+    # repro_torch.kernels.mlstm
+    from repro.kernels import mlstm_kernel as jmlstm
 
-    for i, obj in enumerate((jroof.parse_collectives, jnp.float32)):
+    for i, obj in enumerate((jmlstm.mlstm_pallas, jnp.float32)):
         (msg,) = dec.feed(jnet.encode_wire(("res", 10 + i, obj)))
         assert isinstance(msg, tnet.UnresolvedMessage), obj
-        assert msg.names[0].startswith(("repro.analysis.roofline", "jax"))
+        assert msg.names[0].startswith(("repro.kernels.mlstm_kernel", "jax"))
     assert dec.feed(jnet.encode_wire(("res", 3, "fine"))) == [("res", 3, "fine")]
 
 
