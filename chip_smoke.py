@@ -228,6 +228,16 @@ script exits non-zero:
    `repro_torch.analysis.roofline`) beside the measured step on the host
    clock and its device-busy time, and decode's ``least_step_ms`` beside
    the memory term; a bound above the device-busy time it bounds fails.
+11. the example twins on the card, in at most ``TWINS_BUDGET_S`` = 60 s,
+   each a fresh process as a user runs it, both at once: ``examples_torch/train_lm.py
+   --steps 20`` (the 100M llama3 derivative through ``train_elastic``, a
+   pool resize, a worker kill and 3 more chunks from the checkpoint) and
+   ``examples_torch/serve_llm.py`` (two ``launch.serve`` engines over
+   shared file roots, one SIGKILLed, every request published once); each
+   ``twin`` line holds its tokens/s, seconds and kernel launches (the
+   flash counter > 0 in both, the decode counter > 0 in serve_llm's
+   surviving engine) with the card's name and power limit; a twin that
+   exits non-zero fails the phase.
 
 ``python3 chip_smoke.py serve-ab ROOT`` runs no phase: it times phase
 3's llama3-8b decode step on this tree against the tree at ROOT (the
@@ -281,6 +291,7 @@ GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 4, 32  # phases 3f/3g: `Engine.generate` rows
 # phase 10's inputs: phase 3's llama3-8b decode profile and 5a's train step
 MEASURED = {}
 ROOFLINE_BUDGET_S = 60  # phase 10
+TWINS_BUDGET_S = 60  # phase 11, both twins
 DECODE_SLOT_LENS = (16, 300, 57, 128)  # the live slots of `profile_decode`
 
 
@@ -3335,6 +3346,54 @@ def phase_roofline(torch, port, smi):
     check(elapsed <= ROOFLINE_BUDGET_S, f"phase 10 took {elapsed:.1f} s > {ROOFLINE_BUDGET_S} s")
 
 
+def start_twin(args):
+    """One example twin (``examples_torch/<args[0]>``) started in a fresh
+    process on the card, as a user runs it."""
+    script = Path(__file__).resolve().parent / "examples_torch" / args[0]
+    return subprocess.Popen([sys.executable, str(script), *args[1:]], env=src_env(),
+                            text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def twin_row(args, proc, t0, smi):
+    """A started twin waited for -> its ``twin`` row: the tokens/s and the
+    kernel launches it printed, its seconds from the phase's start."""
+    import re
+
+    try:
+        out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        check(False, f"{args[0]} did not finish in {CHILD_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{args[0]} exited {proc.returncode}: {out[-1500:]} {err[-2500:]}")
+    rate = re.findall(r"\(([0-9.]+) tok/s", out)
+    found = [ln for ln in out.splitlines() if ln.startswith("launches ")]
+    check(bool(rate) and bool(found), f"{args[0]} printed no tok/s or launches: {out[-1500:]}")
+    row = {"phase": "twin", "twin": args[0], "args": args[1:], "card": smi,
+           "tok_s": float(rate[0]), "seconds": seconds,
+           "launches": json.loads(found[-1][len("launches "):]),
+           "last_lines": out.strip().splitlines()[-3:]}
+    emit(row)
+    return row
+
+
+def phase_twins(smi):
+    """Phase 11: the train_lm and serve_llm twins, each as a user runs it,
+    both at once on the card; -> their launches by twin."""
+    t0 = time.perf_counter()
+    runs = [(args, start_twin(args)) for args in (["train_lm.py", "--steps", "20"],
+                                                 ["serve_llm.py"])]
+    train, serve = [twin_row(args, proc, t0, smi) for args, proc in runs]
+    elapsed = time.perf_counter() - t0
+    emit({"phase": "twins_summary", "card": smi, "seconds": elapsed,
+          "budget_s": TWINS_BUDGET_S})
+    check(train["launches"]["flash_attention"] > 0, f"train_lm launched no flash: {train}")
+    for name in ("flash_attention", "decode_attention"):
+        check(serve["launches"][name] > 0, f"serve_llm's survivor launched no {name}: {serve}")
+    check(elapsed <= TWINS_BUDGET_S, f"phase 11 took {elapsed:.1f} s > {TWINS_BUDGET_S} s")
+    return {"train_lm-twin": train["launches"], "serve_llm-twin": serve["launches"]}
+
+
 def load_port():
     """The port's modules and functions the phases use, by name."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -3504,6 +3563,8 @@ def main() -> int:
     lap("9 sharded execution on a one-card mesh")
     phase_roofline(torch, port, smi)
     lap("10 the dry-run's roofline against the card")
+    launches.update(phase_twins(smi))
+    lap("11 the example twins")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),

@@ -1,8 +1,6 @@
 """Generate the §Dry-run / §Roofline tables from
 reports/dryrun_torch/*.json (and §Perf rows from reports/perf_torch/*.json),
 the port's twin of `repro.analysis.report`: per device of an H100 80GB.
-A collective term that a cell keeps out of its bound
-(``collective_in_bound`` false) is printed in parentheses.
 
 Usage: PYTHONPATH=src python -m repro_torch.analysis.report [--section dryrun|roofline|perf|all]
 """
@@ -37,11 +35,6 @@ def fmt_bytes(b: float) -> str:
     return f"{b/1e3:.0f}K"
 
 
-def fmt_collective_s(d: Dict) -> str:
-    s = f"{d['collective_s']:.3f}"
-    return s if d.get("collective_in_bound", True) else f"({s})"
-
-
 def dryrun_table(cells: List[Dict]) -> str:
     rows = [
         "| arch | shape | mesh | compile s | args/dev | temp/dev | fits 80G "
@@ -69,7 +62,7 @@ def roofline_table(cells: List[Dict]) -> str:
     for d in cells:
         rows.append(
             f"| {d['arch']} | {d['shape']} | {d['mesh']} "
-            f"| {d['compute_s']:.3f} | {d['memory_s']:.3f} | {fmt_collective_s(d)} "
+            f"| {d['compute_s']:.3f} | {d['memory_s']:.3f} | {d['collective_s']:.3f} "
             f"| **{d['dominant']}** | {d['useful_ratio']:.2f} "
             f"| {d['roofline_fraction']:.3f} | {d['step_bound_s']:.3f} |"
         )
@@ -84,7 +77,7 @@ def perf_table(cells: List[Dict]) -> str:
     for d in cells:
         rows.append(
             f"| {d['arch']}/{d['shape']}/{d['mesh']} | {d.get('variant','baseline')} "
-            f"| {d['compute_s']:.3f} | {d['memory_s']:.3f} | {fmt_collective_s(d)} "
+            f"| {d['compute_s']:.3f} | {d['memory_s']:.3f} | {d['collective_s']:.3f} "
             f"| {d['dominant']} | {d['roofline_fraction']:.3f} |"
         )
     return "\n".join(rows)
@@ -107,9 +100,6 @@ def main() -> None:
     if args.section in ("perf", "all") and perf:
         print("## §Perf variants\n")
         print(perf_table(perf))
-    if any(not d.get("collective_in_bound", True) for d in cells + perf):
-        print("\ncollective s in parentheses: counted, not held equal to what DTensor "
-              "moves, and not in dominant or bound s")
 
 
 if __name__ == "__main__":

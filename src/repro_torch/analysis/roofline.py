@@ -6,10 +6,11 @@
   collective term = per-device collective wire bytes / link bandwidth
 
 The counts come from the dry-run (`repro_torch.launch.dryrun`), which runs
-the port's program on fake tensors; there is no compiled HLO to parse, so
-the JAX package's regex parse of the post-SPMD text has no twin here.  What
-it kept is the ring accounting per op kind (:func:`ring_wire_bytes`, the
-formulas of JAX's parse), applied to the collectives the dry-run counts.
+the port's program on fake tensors, and its collectives on a fake process
+group; there is no compiled HLO to parse, so the JAX package's regex parse
+of the post-SPMD text has no twin here.  What it kept is the ring
+accounting per op kind (:func:`ring_wire_bytes`, the formulas of JAX's
+parse), applied to the collectives DTensor issues.
 
 Hardware constants (H100 SXM5 80GB, NVIDIA's *H100 Tensor Core GPU*
 datasheet): 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32,
@@ -19,11 +20,6 @@ Gb/s NDR InfiniBand port per GPU, 50 GB/s.  A collective whose group lies
 in one node of 8 (the mesh's axes laid out minor-most, as
 :func:`group_link` reads them) is timed at NVLink's rate, a larger one at
 the network's.
-
-A ``Roofline`` with ``collective_in_bound=False`` reports its collective
-term beside the other two but leaves it out of ``dominant`` and the step
-bound: the dry-run does so while its collective count is not held equal
-to what DTensor moves.
 """
 
 from __future__ import annotations
@@ -135,7 +131,6 @@ class Roofline:
     memory_stats: Dict[str, float] = field(default_factory=dict)
     link: str = "nvlink"  # the link kind the collective term is timed at
     link_bw: float = NVLINK_BW  # its rate, bytes/s per device
-    collective_in_bound: bool = True  # False: collective_s reported, not in dominant or bound
 
     def finalize(self) -> "Roofline":
         self.compute_s = self.hlo_flops_per_device / PEAK_FLOPS
@@ -144,9 +139,8 @@ class Roofline:
         terms = {
             "compute": self.compute_s,
             "memory": self.memory_s,
+            "collective": self.collective_s,
         }
-        if self.collective_in_bound:
-            terms["collective"] = self.collective_s
         self.dominant = max(terms, key=terms.get)
         total_hlo = self.hlo_flops_per_device * self.n_devices
         self.useful_ratio = self.model_flops / total_hlo if total_hlo else 0.0
@@ -154,8 +148,7 @@ class Roofline:
 
     def step_time_bound_s(self) -> float:
         """Roofline lower bound on step time (no overlap assumption: max)."""
-        terms = (self.compute_s, self.memory_s)
-        return max(terms + (self.collective_s,) if self.collective_in_bound else terms)
+        return max(self.compute_s, self.memory_s, self.collective_s)
 
     def roofline_fraction(self) -> float:
         """Achievable-MFU proxy: useful FLOPs at peak vs roofline-bound time."""
@@ -183,7 +176,6 @@ class Roofline:
             "memory_stats": self.memory_stats,
             "link": self.link,
             "link_bw": self.link_bw,
-            "collective_in_bound": self.collective_in_bound,
         }
 
 

@@ -5,8 +5,8 @@ the plain PyTorch version, a CUDA tensor to the hand-written CUDA kernel
 (or the call raises).  Each kernel name here is the kernel module's
 wrapper, which makes that choice itself; tests that want the plain version
 on any device call ``ref`` (or the kernel modules' ``*_plain``) directly.
-``ssd_decode_step`` and ``mlstm_decode_step`` are plain PyTorch on every
-device: the JAX package has no kernel for them either.
+``ssd_decode_step``, ``mlstm_decode_step`` and ``slstm_recurrence`` are plain
+PyTorch on every device: the JAX package has no kernel for them either.
 
 A CUDA call that autograd must differentiate (grad mode on and an input
 requiring grad: the train step) of flash attention, the SSD scan or the
@@ -53,7 +53,7 @@ from .mlstm import mlstm_plain
 
 __all__ = [
     "attention_chunked", "decode_attention", "flash_attention", "mlstm_decode_step",
-    "mlstm_parallel", "ssd_decode_step", "ssd_scan",
+    "mlstm_parallel", "slstm_recurrence", "ssd_decode_step", "ssd_scan",
 ]
 
 NEG_INF = -1e30
@@ -73,6 +73,7 @@ def _grad_on_card(*tensors) -> bool:
 _BSHD = ("b", None, "h", None)
 _BSGD = ("b", None, "g", None)
 _BSH = ("b", None, "h")
+_BH_ = ("b", "h", None)
 _ROLES = {
     "flash_attention": ((_BSHD, _BSGD, _BSGD), (_BSHD,)),
     "decode_attention": ((("b", "h", None), _BSGD, _BSGD, ("b",)), (("b", "h", None),)),
@@ -81,6 +82,8 @@ _ROLES = {
     "ssd_decode_step": ((("b", "h", None, None), ("b", "h", None), ("b", "h"), ("h",),
                          ("b", "g", None), ("b", "g", None), ("h",)),
                         (("b", "h", None, None), ("b", "h", None))),
+    "slstm_recurrence": ((("b", None, "h", None, None), ("h", None, None)) + (_BH_,) * 4,
+                         (_BSHD,) + (_BH_,) * 4),
 }
 
 
@@ -92,8 +95,8 @@ def local_split(shapes, roles, lead_split, sizes):
     heads split with the heads where the axes divide them; where they do
     not but each rank's heads read one group (GQA with tp above the KV
     heads) they stay whole and each rank takes its own group locally.
-    -> (``{axis: role}``, whole_groups).  `_local_launch` calls it on
-    DTensor placements, the dry-run on abstract layouts."""
+    -> (``{axis: role}``, whole_groups), as `_local_launch` reads
+    DTensor placements."""
     split = dict(lead_split)
 
     def ways(role) -> int:
@@ -201,7 +204,7 @@ def _launch(kernel, plain, kw, *tensors, name: str, n_out: int = 1):
         return kernel(*tensors, **kw)
 
     obs = observer()
-    return run() if obs is None else obs.launch(name, tensors, kw, run, True)
+    return run() if obs is None else obs.launch(name, tensors, kw, run)
 
 
 def attention_chunked(
@@ -274,15 +277,22 @@ def flash_attention(
     tensor, through ``PlainBackwardFn`` where autograd needs its
     gradient; its plain version on a CPU one).  Dv != D: plain PyTorch on
     every device, the reference up to Sq * Sk <= 256^2, else the chunked
-    scan."""
+    scan; DTensors run it on each rank's local shards (`_local_launch`),
+    as the kernel runs."""
     kw = dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset)
     if v.shape[-1] == q.shape[-1]:
         return _launch(flash_attention_kernel, flash_attention_plain, dict(scale=scale, **kw),
                        q, k, v, name="flash_attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.shape[1] * k.shape[1] <= 256 * 256:
-        return ref.mha_reference(q, k, v, scale=scale, **kw)
-    return attention_chunked(q, k, v, scale=scale, **kw)
+
+    def plain(q, k, v):
+        if q.shape[1] * k.shape[1] <= 256 * 256:
+            return ref.mha_reference(q, k, v, scale=scale, **kw)
+        return attention_chunked(q, k, v, scale=scale, **kw)
+
+    if any(is_dtensor(t) for t in (q, k, v)):  # on local shards, as a kernel runs
+        return _local_launch(plain, "flash_attention", (q, k, v))
+    return plain(q, k, v)
 
 
 def decode_attention(
@@ -351,9 +361,6 @@ def ssd_decode_step(
     args = (state, x_t, dt_t, A, B_t, C_t, D)
     if any(is_dtensor(t) for t in args):
         return _local_launch(_ssd_decode_step, "ssd_decode_step", args, n_out=2)
-    obs = observer()
-    if obs is not None:
-        return obs.launch("ssd_decode_step", args, {}, lambda: _ssd_decode_step(*args), False)
     return _ssd_decode_step(*args)
 
 
@@ -369,6 +376,51 @@ def _ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
     if D is not None:
         y = y + x_t.float() * D.float()[None, :, None]
     return state, y.to(x_t.dtype)
+
+
+def slstm_recurrence(
+    gx: torch.Tensor,  # (B, S, nh, hd, 4) fp32 input gate pre-activations
+    r: torch.Tensor,  # (nh, hd, 4 hd) recurrent weight, its last two axes flattened
+    c: torch.Tensor,  # (B, nh, hd) fp32 carry: cell, normalizer, stabilizer, hidden
+    n: torch.Tensor,
+    m: torch.Tensor,
+    h: torch.Tensor,
+):
+    """The sLSTM recurrence, one step per token -> (hidden states (B, S, nh,
+    hd), final c, n, m, h).  DTensor inputs run it on each rank's rows and
+    heads (`_local_launch`), one redistribution for the whole scan: DTensor
+    has no rule for its log-sigmoid's backward (torch 2.13)."""
+    args = (gx, r, c, n, m, h)
+    if any(is_dtensor(t) for t in args):
+        return _local_launch(_slstm_recurrence, "slstm_recurrence", args, n_out=5)
+    return _slstm_recurrence(*args)
+
+
+def _slstm_recurrence(gx, r, c, n, m, h):
+    carry, hs = (c, n, m, h), []
+    for t in range(gx.shape[1]):
+        carry = _slstm_step(r, carry, gx[:, t])
+        hs.append(carry[3])
+    return (torch.stack(hs, dim=1),) + carry
+
+
+def _slstm_step(r, carry, gx_t):
+    """One step: ``r`` (nh, hd, 4 hd), ``gx_t`` (B, nh, hd, 4)."""
+    c, n, m, h = carry
+    B, nh, hd = h.shape
+    rec = torch.bmm(h.transpose(0, 1), r).transpose(0, 1).reshape(B, nh, hd, 4)
+    pre = gx_t + rec
+    i_t, f_t = pre[..., 0], pre[..., 1]
+    z_t = torch.tanh(pre[..., 2])
+    o_t = torch.sigmoid(pre[..., 3])
+    logf = F.logsigmoid(f_t)
+    m_new = torch.maximum(logf + m, i_t)
+    igate = torch.exp(i_t - m_new)
+    fgate = torch.exp(logf + m - m_new)
+    c_new = fgate * c + igate * z_t
+    n_new = fgate * n + igate
+    h_new = o_t * c_new / torch.clamp_min(n_new, 1.0)
+    return c_new, n_new, m_new, h_new
 
 
 def mlstm_decode_step(

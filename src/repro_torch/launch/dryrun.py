@@ -2,20 +2,16 @@
 `repro.launch.dryrun`).
 
 Says, before anyone rents 256 or 512 GPUs, whether a model and shape fit
-each one and which of compute or HBM bounds its step, with a modelled
-collective term beside them.  No
-process group, no device mesh and no DTensor: the meshes are
-`models.sharding.AbstractMesh` (axis names and sizes), which the port's
-sharding rules read as they read a device mesh.
+each one and which of compute, HBM or the network bounds its step.
 
 For each (arch, shape) the port's own program runs once at full depth and
 width on fake CPU tensors (``FakeTensorMode``: shapes and dtypes, no
-storage), with no mesh: ``make_train_step`` (remat on, as JAX's default
-policy ``nothing``; AdamW with bf16 moments), ``prefill`` or
-``decode_step``.  The fake tensors carry the CPU device, so each kernel
-wrapper of `kernels.ops` takes its plain version: the count sees the
-function each kernel computes, and nothing is allocated or launched on any
-device.  That is how the count works, not a fallback.
+storage), with no mesh and no process group: ``make_train_step`` (remat
+on, as JAX's default policy ``nothing``; AdamW with bf16 moments),
+``prefill`` or ``decode_step``.  The fake tensors carry the CPU device, so
+each kernel wrapper of `kernels.ops` takes its plain version: the count
+sees the function each kernel computes, and nothing is allocated or
+launched on any device.  That is how the count works, not a fallback.
 
   * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` (matmul-class aten
     ops, the backward included).  XLA also counts elementwise FLOPs, so
@@ -33,34 +29,21 @@ device.  That is how the count works, not a fallback.
     of the plain forward is not counted).
   * per device: both counts divided by the cell's device count, JAX's rule
     (the unpartitioned module's totals over ``n_devices``).
-  * collectives: a no-grad forward of the same program with an observer
-    (`repro_torch.util.observe`) that prices, per mesh, an FSDP +
-    Megatron program at the port's constraint sites: each parameter's FSDP
-    all-gather where a forward op reads it; the tensor-parallel all-reduce
-    of each row-parallel product and vocab-parallel lookup (reduce-scatter
-    and all-gather under sequence parallelism); a partial sum where a
-    product contracts a split dim (the MoE combine's sum over tp-split
-    experts); the redistributions at the constraint sites ``shard``,
-    ``residual_shard`` and ``placed_like`` from the layout each tensor last
-    had; the stand-ins of ROADMAP Queue 3 (the tokens replicated for the
-    embedding, the vocab-whole CE gather, the replicated MoE routing, and
-    the split `ops.local_split` keeps for a kernel, the other dims
-    replicated, such as a sequence-sharded decode cache).  A train step
-    adds the remat recompute (the layers' collectives again, inside the
-    scope "layer" that `transformer._call` sets), the backward (each
-    forward collective's transpose: Megatron's f for its g, a
-    reduce-scatter for an all-gather) and each parameter's gradient sync
-    (reduce-scatter over the dp axes it is sharded on, all-reduce over
-    those it is not).  Each collective is timed by the ring accounting of
+  * collectives: DTensor's own program.  For each mesh of more than one
+    device a child process (:func:`count_collectives`) starts torch's
+    built-in ``"fake"`` process group at the mesh's size (its collectives
+    move nothing), builds the mesh (`launch.mesh`), places the cell's fake
+    arguments by the port's specs (``state_pspec``, ``batch_pspec``,
+    ``cache_pspec``) and runs the same program under ``use_mesh`` and
+    :class:`CollectiveRecorder` (``CommDebugMode``), which records each
+    functional collective: its op, its result bytes on rank 0 and its
+    group's mesh dims.  Each is timed by the ring accounting of
     `analysis.roofline` at NVLink's rate where its group lies in one node
-    of 8, else at the network's.  **This count is not DTensor's**: on a
-    (2, 2) gloo mesh DTensor picks other placements op by op (it gathers
-    weights over both mesh dims, reduce-scatters the partial sums that
-    reach an RMSNorm and gathers them back, re-lays residual adds) and
-    issues 1.02-2.2 x the wire bytes, per op kind in other counts
-    (`tests/test_torch_distributed.py`).  So each cell reports
-    ``collective_s`` but keeps it out of ``dominant`` and ``step_bound_s``
-    (``collective_in_bound`` false).
+    of 8, else at the network's, and the term is in ``dominant`` and
+    ``step_bound_s``, as JAX's is.  On a (2, 2) mesh the count equals the
+    record of the same step on 4 gloo ranks op for op
+    (`tests/test_torch_distributed.py`).  The hillclimb levers reach the
+    child through its environment.
   * memory per device: each argument and output leaf's local shard, a dim
     the mesh does not divide replicated (`models.sharding.placements`'s
     rule); ``alias_bytes`` is the donated state or cache.  ``temp_bytes`` is
@@ -76,6 +59,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod-only|--single-only]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --skip-done   # resume
+  --all runs one cell at a time; each mesh's collective count is a child
+  process of its own (CPU, torch's "fake" process group, no devices).
 """
 
 from __future__ import annotations
@@ -106,12 +91,10 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.launch.mesh import abstract_production_mesh
 from repro_torch.launch.shardings import batch_pspec, cache_pspec, state_pspec
 from repro_torch.models import decode_step, init_cache, init_params, prefill
-from repro_torch.kernels import ops
 from repro_torch.models import sharding as sh
 from repro_torch.models.layers import dtype_of
 from repro_torch.train import TrainState, adamw, make_train_step
-from repro_torch.train.train_step import make_loss_fn
-from repro_torch.util import observe, scopes, tree_flatten, tree_map_with_path
+from repro_torch.util import observe, tree_flatten
 
 REPORT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "reports", "dryrun_torch")
 
@@ -121,12 +104,10 @@ BYTES_COUNTED = ("operand and result bytes of every aten op that is not a view; 
                  "launch (flash_attention, decode_attention, ssd, mlstm) its operands and "
                  "results once, decode attention's cache to each row's length, and not "
                  "its plain version's ops")
-COLLECTIVES_COUNTED = ("unvalidated, not in dominant or step_bound_s: FSDP all-gathers of "
-                       "parameters per forward use (again in the remat recompute), "
-                       "tensor-parallel reductions of row-parallel products, partial sums "
-                       "of products over split dims, redistributions at the constraint "
-                       "sites and kernel launches, the backward's transposes and the "
-                       "gradient syncs; ring accounting")
+COLLECTIVES_COUNTED = ("DTensor's functional collectives of the same program on a fake "
+                       "process group of the mesh's size (CommDebugMode), each at its result "
+                       "bytes and group; a CPU mesh's all-gather for an all-to-all as the "
+                       "all-to-all; ring accounting per group's link")
 
 
 def mesh_name(mesh) -> str:
@@ -329,7 +310,9 @@ class ByteCounter(TorchDispatchMode):
             self.bytes += _op_bytes(func, args, kwargs, out)
         return out
 
-    def kernel(self, name: str, tensors, kw, run):
+    def launch(self, name: str, tensors, kw, run):
+        """A kernel launch of `kernels.ops` (its observer hook): ``run()``
+        counted as one op of the kernel's bytes."""
         self._inside += 1
         try:
             out = run()
@@ -342,404 +325,286 @@ class ByteCounter(TorchDispatchMode):
 
 
 # ---------------------------------------------------------------------------
-# collectives: what the port's program moves on a mesh of each shape
+# collectives: DTensor's own, of the same program on a fake process group
 # ---------------------------------------------------------------------------
 
-def _in_layer() -> bool:
-    """True inside a model layer (`transformer._call`'s scope), which the
-    remat recompute runs again."""
-    return "layer" in scopes()
+_FUNCOLS = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+            "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
 
 
-Layout = Tuple[Tuple[Tuple[str, ...], ...], frozenset]  # (axes per dim, partial axes)
+def _cpu_alltoall() -> bool:
+    """True inside DTensor's ``shard_dim_alltoall`` on a CPU mesh, which
+    issues an all-gather and keeps a chunk where NCCL issues one all-to-all
+    (`torch/distributed/tensor/_collective_utils.py`)."""
+    f = sys._getframe(1)
+    while f is not None:
+        if f.f_code.co_name == "shard_dim_alltoall" and \
+                f.f_code.co_filename.endswith("_collective_utils.py"):
+            return True
+        f = f.f_back
+    return False
 
 
-class MeshCount:
-    """The collectives of one forward on one mesh: every event is
-    ``(op, result bytes per device, group size, link, kind, in_layer)``,
-    kind "param" (an FSDP gather), "tp" (a row-parallel reduction),
-    "site" (a constraint site's or a launch's redistribution)."""
+def _recorder_class():
+    """:class:`CollectiveRecorder`, built on first use: importing DTensor's
+    debug module loads one of torch's test-support modules, which a process
+    that counts no collectives never needs."""
+    from torch._ops import HigherOrderOperator
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
 
-    def __init__(self, mesh, cfg: ModelConfig, params, cache=None, batch=None) -> None:
-        self.mesh = mesh
-        self.names = list(mesh.axis_names)
-        self.dims = tuple(mesh.shape[a] for a in self.names)
-        self.dp = tuple(sh.physical_axes(mesh, sh.DP) or ())
-        tp = sh.physical_axes(mesh, sh.TP)
-        self.tp = (tp,) if tp else ()
-        self.events: List[Tuple[str, float, int, str, str, bool]] = []
-        self.table: Dict[int, Tuple[torch.Tensor, Layout]] = {}
-        self.params: Dict[int, Tuple[torch.Tensor, Tuple[Tuple[str, ...], ...]]] = {}
-        for t, spec in self._pairs(params, sh.param_pspec(mesh, params)):
-            self.params[id(t)] = (t, layout(mesh, spec, tuple(t.shape)))
-        if cache is not None:
-            for t, spec in self._pairs(cache, cache_pspec(mesh, cfg, cache)):
-                self.track(t, layout(mesh, spec, tuple(t.shape)))
-        if batch is not None:
-            for t, spec in self._pairs(batch, batch_pspec(mesh, batch)):
-                self.track(t, layout(mesh, spec, tuple(t.shape)))
+    class CollectiveRecorder(CommDebugMode):
+        """``CommDebugMode`` that records every functional collective a
+        DTensor program issues on ``mesh``: ``events`` holds (op, result
+        bytes on this rank, the mesh dims of its group).  Like
+        ``CommDebugMode`` it lets DTensor desugar each op into local ops
+        and collectives first; it keeps none of ``CommDebugMode``'s per-op
+        tables, which a count of 10^5 ops or more would fill.  A CPU mesh's
+        all-gather that stands in for an all-to-all is recorded as the
+        all-to-all a CUDA mesh issues, with its input's bytes.  A collective
+        of another kind raises: the count drops none."""
 
-    @staticmethod
-    def _pairs(tree, specs):
-        return zip(tree_flatten(tree)[0],
-                   tree_flatten(specs, is_leaf=lambda x: isinstance(x, sh.P))[0])
+        def __init__(self, mesh) -> None:
+            super().__init__()
+            self.dims = {mesh.get_group(d).group_name: (d,) for d in range(mesh.ndim)}
+            self.events: List[Tuple[str, int, Tuple[int, ...]]] = []
 
-    # -- layouts --
-    def size(self, axes) -> int:
-        return math.prod(self.mesh.shape[a] for a in axes)
-
-    def link(self, axes) -> str:
-        return rl.group_link(self.dims, [self.names.index(a) for a in axes])
-
-    def track(self, t: torch.Tensor, lay, partial=frozenset()) -> None:
-        self.table[id(t)] = (t, (tuple(lay), frozenset(partial)))
-
-    def default(self, t: torch.Tensor) -> Layout:
-        """An untracked activation: its batch (dim 0) over dp where dp
-        divides it, as the residual stream lies."""
-        shape = tuple(t.shape)
-        lay = [()] * len(shape)
-        if shape and self.dp and shape[0] % self.size(self.dp) == 0:
-            lay[0] = self.dp
-        return tuple(lay), frozenset()
-
-    def current(self, t: torch.Tensor) -> Layout:
-        hit = self.table.get(id(t))
-        return hit[1] if hit is not None and hit[0] is t else self.default(t)
-
-    def local_bytes(self, t: torch.Tensor, lay) -> float:
-        return t.numel() * t.element_size() / self.size([a for axes in lay for a in axes])
-
-    def emit(self, op, nbytes, axes, kind, in_layer) -> None:
-        n = self.size(axes)
-        if n > 1:
-            self.events.append((op, float(nbytes), n, self.link(axes), kind, in_layer))
-
-    def redistribute(self, t: torch.Tensor, dst, in_layer: bool) -> None:
-        """Collectives that take ``t`` from its current layout to ``dst``
-        (axes per dim, not partial), one mesh axis at a time as DTensor
-        redistributes."""
-        src, partial = self.current(t)
-        cur = [list(axes) for axes in src]
-        for a in self.names:
-            s_dim = next((d for d, axes in enumerate(cur) if a in axes), None)
-            d_dim = next((d for d, axes in enumerate(dst) if a in axes), None)
-            if a in partial:
-                if d_dim is not None:
-                    cur[d_dim].append(a)
-                    self.emit("reduce-scatter", self.local_bytes(t, cur), (a,), "site", in_layer)
-                else:
-                    self.emit("all-reduce", self.local_bytes(t, cur), (a,), "site", in_layer)
-            elif s_dim is not None and d_dim is None:
-                cur[s_dim].remove(a)
-                self.emit("all-gather", self.local_bytes(t, cur), (a,), "site", in_layer)
-            elif s_dim is not None and d_dim != s_dim:
-                cur[s_dim].remove(a)
-                cur[d_dim].append(a)
-                self.emit("all-to-all", self.local_bytes(t, cur), (a,), "site", in_layer)
-        self.track(t, dst)
-
-    def view(self, x, out, where) -> None:
-        """``out`` a view of ``x`` (or a copy in its layout): each split dim
-        of a tracked ``x`` lands where ``where(dim)`` puts it."""
-        hit = self.table.get(id(x))
-        if hit is None or hit[0] is not x:
-            return
-        lay, partial = hit[1]
-        new = [[] for _ in range(out.dim())]
-        for d, axes in enumerate(lay):
-            j = where(d) if axes else None
-            if j is not None and 0 <= j < out.dim():
-                new[j].extend(axes)
-        self.track(out, tuple(tuple(a) for a in new), partial)
-
-    # -- observer events --
-    def shard(self, x, logical, in_layer) -> None:
-        spec = sh.make_pspec(self.mesh, *logical)
-        self.redistribute(x, layout(self.mesh, spec, tuple(x.shape)), in_layer)
-
-    def residual(self, x, in_layer) -> None:
-        tp = self.tp[0] if self.tp else None
-        if sh.seq_parallel() and tp is not None and x.shape[1] % self.size(self.tp) == 0 \
-                and x.shape[1] >= self.size(self.tp):
-            return self.shard(x, (sh.DP, sh.TP, None), in_layer)
-        self.shard(x, (sh.DP, None, None), in_layer)
-
-    def placed_like(self, x, ref, in_layer) -> None:
-        lay, _ = self.current(ref)
-        self.redistribute(x, lay, in_layer)
-
-    def launch(self, name: str, tensors, in_layer) -> None:
-        """`ops._local_launch`'s redistributions on abstract layouts: the
-        split that `ops.local_split` keeps, every other dim replicated
-        first."""
-        in_roles = ops._ROLES[name][0]
-        present = [i for i, t in enumerate(tensors) if t is not None]
-        args = [tensors[i] for i in present]
-        roles = [in_roles[i] for i in present]
-        lead = self.current(args[0])[0]
-        split, whole = ops.local_split(
-            [tuple(t.shape) for t in args], roles,
-            {a: roles[0][d] for d, axes in enumerate(lead) for a in axes
-             if roles[0][d] in ("b", "h")},
-            dict(self.mesh.shape))
-        for t, r in zip(args, roles):
-            dst = [[] for _ in r]
-            for a in self.names:
-                d = ops.split_dim(r, a, split, whole)
-                if d is not None:
-                    dst[d].append(a)
-            self.redistribute(t, tuple(tuple(x) for x in dst), in_layer)
-
-    def contract(self, a, b, out) -> None:
-        """A product ``out = a @ b`` (batched or not) of tracked operands:
-        a contracted dim split over some axes makes ``out`` a partial sum
-        over them (as the MoE combine's sum over tp-split experts); the
-        batch and row dims keep ``a``'s axes."""
-        ta, tb = self.table.get(id(a)), self.table.get(id(b))
-        ta = ta[1][0] if ta is not None and ta[0] is a else None
-        tb = tb[1][0] if tb is not None and tb[0] is b else None
-        if ta is None and tb is None:
-            return
-        partial = set(ta[-1] if ta else ()) | set(tb[-2] if tb else ())
-        lay = [()] * out.dim()
-        if ta:
-            lay[:-1] = [tuple(x for x in axes if x not in partial) for axes in ta[:-1]]
-        self.track(out, tuple(lay), partial)
-
-    def param_use(self, leaf, nbytes, in_layer) -> None:
-        """An FSDP all-gather of what a forward op reads of ``leaf`` over
-        the dp axes its spec splits it on."""
-        lay = self.params[id(leaf)][1]
-        axes = [a for dims in lay for a in dims]
-        dp_axes = [a for a in axes if a in self.dp]
-        if dp_axes:
-            rest = self.size([a for a in axes if a not in self.dp])
-            self.emit("all-gather", nbytes / rest, dp_axes, "param", in_layer)
-
-    def tp_reduce(self, leaf, out, in_layer) -> None:
-        """A row-parallel product's (or a vocab-parallel lookup's) output,
-        partial over tp where the parameter is split on tp: an all-reduce,
-        or under sequence parallelism a reduce-scatter and the all-gather
-        before the next column-parallel product."""
-        lay = self.params[id(leaf)][1]
-        if not self.tp or self.tp[0] not in [a for dims in lay for a in dims]:
-            return
-        nbytes = self.local_bytes(out, self.default(out)[0])
-        if sh.seq_parallel():
-            self.emit("reduce-scatter", nbytes / self.size(self.tp), self.tp, "tp", in_layer)
-            self.emit("all-gather", nbytes, self.tp, "tp", in_layer)
-        else:
-            self.emit("all-reduce", nbytes, self.tp, "tp", in_layer)
-
-    def grad_syncs(self, params) -> List[Tuple[str, float, int, str]]:
-        """Each parameter's gradient: a reduce-scatter over the dp axes its
-        spec splits it on, an all-reduce over the dp axes it is whole on."""
-        out = []
-        for t in tree_flatten(params)[0]:
-            lay = self.params[id(t)][1]
-            axes = [a for dims in lay for a in dims]
-            local = t.numel() * t.element_size() / self.size(axes)
-            sharded = [a for a in axes if a in self.dp]
-            whole = [a for a in self.dp if a not in axes]
-            if sharded and self.size(sharded) > 1:
-                out.append(("reduce-scatter", local, self.size(sharded), self.link(sharded)))
-            if whole and self.size(whole) > 1:
-                out.append(("all-reduce", local, self.size(whole), self.link(whole)))
-        return out
-
-
-# aten ops whose result keeps its input's layout (views, casts, copies)
-_VIEWS = ("view", "_unsafe_view", "t", "transpose", "permute", "expand", "unsqueeze",
-          "squeeze", "slice", "select", "_to_copy", "clone", "detach", "alias", "lift_fresh")
-
-
-def _map_dim(in_shape, out_shape, d: Optional[int]) -> Optional[int]:
-    """The output dim a reshape puts input dim ``d``'s outermost part in."""
-    if d is None or in_shape[d] == 1:
-        return None
-    pre = math.prod(in_shape[:d])
-    acc = 1
-    for j, n in enumerate(out_shape):
-        if acc <= pre < acc * n or (n > 1 and acc == pre):
-            return j
-        acc *= n
-    return None
-
-
-def _tp_dim_after(func, args, out, d: Optional[int]) -> Optional[int]:
-    """Where a view-like op puts the input's dim ``d``."""
-    name = func.overloadpacket.__name__
-    x = args[0]
-    if d is None or not isinstance(out, torch.Tensor):
-        return None
-    if name in ("view", "_unsafe_view", "squeeze"):
-        return _map_dim(tuple(x.shape), tuple(out.shape), d)
-    if name == "t":
-        return 1 - d if x.dim() == 2 else d
-    if name == "transpose":
-        a, b = (int(args[1]) % x.dim(), int(args[2]) % x.dim())
-        return b if d == a else a if d == b else d
-    if name == "permute":
-        perm = [int(p) % x.dim() for p in args[1]]
-        return perm.index(d)
-    if name == "unsqueeze":
-        k = int(args[1]) % out.dim()
-        return d + 1 if d >= k else d
-    if name == "expand":  # new dims lead
-        return d + out.dim() - x.dim()
-    if name == "select":
-        k = int(args[1]) % x.dim()
-        return None if d == k else d - 1 if d > k else d
-    return d
-
-
-class ParamUses(TorchDispatchMode):
-    """Tells the observer's counts where forward ops read a parameter (an
-    FSDP gather), where a product contracts a parameter's tensor-parallel
-    dim (a row-parallel reduction), and where a product of activations
-    contracts a split dim (a partial sum)."""
-
-    def __init__(self, counts: List[MeshCount], params) -> None:
-        super().__init__()
-        self.counts = counts
-        self.leaves: Dict[int, Tuple[torch.Tensor, Optional[int]]] = {}
-        for t, tp_dim in _leaves_with_tp_dim(params):
-            self.leaves[id(t)] = (t, tp_dim)
-        self.derived: Dict[int, Tuple[torch.Tensor, torch.Tensor, Optional[int]]] = {}
-
-    def origin(self, t):
-        """(parameter leaf, its tp dim in ``t``) where ``t`` is a leaf or
-        a view of one, else None."""
-        if not isinstance(t, torch.Tensor):
-            return None
-        hit = self.leaves.get(id(t))
-        if hit is not None and hit[0] is t:
-            return t, hit[1]
-        hit = self.derived.get(id(t))
-        if hit is not None and hit[0] is t:
-            return hit[1], hit[2]
-        return None
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if func.namespace != "aten":  # metadata queries (prim.device) read nothing
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if isinstance(func, HigherOrderOperator):
+                return func(*args, **kwargs)
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            out = func(*args, **kwargs)
+            if getattr(func, "namespace", None) != "_c10d_functional":
+                return out
+            name = func.__name__.split(".")[0]
+            if name.startswith(("wait", "_")):  # waits and autograd wrappers move nothing
+                return out
+            op = _FUNCOLS.get(name)
+            if op is None:
+                raise NotImplementedError(f"the collective count has no rule for {name}")
+            nbytes = out.numel() * out.element_size()
+            if op == "all-gather" and _cpu_alltoall():
+                op, nbytes = "all-to-all", args[0].numel() * args[0].element_size()
+            self.events.append((op, nbytes, self.dims[kwargs.get("group_name", args[-1])]))
             return out
-        name = func.overloadpacket.__name__
-        if name in _VIEWS and args and isinstance(out, torch.Tensor):
-            for c in self.counts:  # a view keeps its source's layout
-                c.view(args[0], out, lambda d: _tp_dim_after(func, args, out, d))
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        direct = [a for a in tensors if id(a) in self.leaves and self.leaves[id(a)][0] is a]
-        origins = [self.origin(a) for a in tensors]
-        if not direct and not any(origins):
-            if name in ("mm", "bmm") and isinstance(out, torch.Tensor):
-                for c in self.counts:
-                    c.contract(args[0], args[1], out)
+
+    return CollectiveRecorder
+
+
+def __getattr__(name: str):
+    if name == "CollectiveRecorder":
+        cls = globals()[name] = _recorder_class()
+        return cls
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def event_stats(events, mesh_shape: Sequence[int]) -> rl.CollectiveStats:
+    """Recorded (op, result bytes, group's mesh dims) events by ring
+    accounting, each timed over its group's link."""
+    stats = rl.CollectiveStats()
+    for op, nbytes, dims in events:
+        stats.add(op, nbytes, math.prod(mesh_shape[d] for d in dims),
+                  rl.group_link(mesh_shape, dims))
+    return stats
+
+
+def _fake_mode_metadata() -> None:
+    """Let DTensor compute its placement metadata under ``FakeTensorMode``.
+    Two of its computations build small tensors: a strided shard's local
+    sizes (an index tensor as long as the dim, split and read back with
+    ``tolist``) and the strategies of an op it decomposes (traced on meta
+    tensors).  Under the fake mode those tensors turn fake and both raise,
+    where on real tensors they run; here they run with the fake mode
+    suspended.  Two pure functions that DTensor's strategy search asks for
+    again and again, a strided shard's sizes and the cost of a
+    redistribution between two specs, are computed once per argument
+    tuple (without it most of a 2 x 16 x 16 train step's count).  What the
+    program computes, and every collective, is unchanged."""
+    import copy
+
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._decompositions import DecompShardingStrategy
+    from torch.distributed.tensor._ops import utils as strategy_utils
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def suspended(fn, memo=None):
+        if getattr(fn, "_real_metadata", False):
+            return fn
+
+        def run(*args, **kwargs):
+            key = None
+            if memo is not None and not kwargs and all(isinstance(a, int) for a in args[1:]):
+                key = (args[0].dim, args[0].split_factor) + tuple(int(a) for a in args[1:])
+                if key in memo:
+                    return copy.deepcopy(memo[key])
+            with unset_fake_temporarily():
+                out = fn(*args, **kwargs)
+            if key is not None:
+                memo[key] = copy.deepcopy(out)
             return out
-        in_layer = _in_layer()
-        for leaf in direct:
-            nbytes = _nbytes(out) if func.is_view else _nbytes(leaf)
-            for c in self.counts:
-                c.param_use(leaf, nbytes, in_layer)
-        first = self.origin(args[0]) if args else None
-        if name in _VIEWS and first is not None and isinstance(out, torch.Tensor):
-            self.derived[id(out)] = (out, first[0], _tp_dim_after(func, args, out, first[1]))
-            return out
-        row = None
-        if name in ("mm", "addmm"):
-            a, b = (args[1], args[2]) if name == "addmm" else (args[0], args[1])
-            oa, ob = self.origin(a), self.origin(b)
-            if ob is not None and ob[1] == 0:
-                row = ob[0]
-            elif oa is not None and oa[1] == 1:
-                row = oa[0]
-        elif name in ("bmm", "baddbmm"):
-            a, b = (args[1], args[2]) if name == "baddbmm" else (args[0], args[1])
-            oa, ob = self.origin(a), self.origin(b)
-            if ob is not None and ob[1] == 1:
-                row = ob[0]
-            elif oa is not None and oa[1] == 2:
-                row = oa[0]
-        elif name in ("embedding", "index"):  # a lookup in a vocab-parallel table
-            ot = self.origin(args[0])
-            if ot is not None and ot[1] == 0:
-                row = ot[0]
-        if row is not None:
-            for c in self.counts:
-                c.tp_reduce(row, out, in_layer)
-        return out
+
+        run._real_metadata = True
+        return run
+
+    _StridedShard.local_shard_size_and_offset = suspended(
+        _StridedShard.local_shard_size_and_offset, memo={})
+    DecompShardingStrategy.propagate_strategy = suspended(
+        DecompShardingStrategy.propagate_strategy)
+    # the cost model's price of one redistribution, a pure function of the
+    # two specs, which each op's strategy search asks for again and again
+    cost = strategy_utils.redistribute_cost
+    if not getattr(cost, "_real_metadata", False):
+        costs: Dict[Any, float] = {}
+
+        def redistribute_cost(current, target):
+            key = (current, target)
+            if key not in costs:
+                costs[key] = cost(current, target)
+            return costs[key]
+
+        redistribute_cost._real_metadata = True
+        strategy_utils.redistribute_cost = redistribute_cost
 
 
-def _leaves_with_tp_dim(params):
-    """(leaf, the dim its rule puts on the logical tp axis or None) for
-    every parameter leaf."""
-    out = []
+def run_program(cfg: ModelConfig, kind: str, args: Dict[str, Any], *, remat: bool = True,
+                microbatches: int = 1, fused_ce: Optional[bool] = None, inplace: bool = False,
+                cache_len=None):
+    """The cell's program on ``args`` (`cell_args`): a train step, a
+    prefill or a decode step (``cache_len``: an int or B per-row ints)."""
+    if kind == "train":
+        step = make_train_step(cfg, args["opt"], remat=remat, microbatches=microbatches,
+                               fused_ce=fused_ce, inplace=inplace)
+        return step(args["state"], args["batch"])
+    with torch.no_grad():
+        if kind == "prefill":
+            return prefill(args["params"], cfg, args["batch"], args["cache"])
+        if isinstance(cache_len, (list, tuple)):  # the per-row form
+            cache_len = torch.tensor(cache_len, dtype=torch.int32)
+        return decode_step(args["params"], cfg, args["batch"]["tokens"], args["cache"],
+                           cache_len)
 
-    def visit(path, t):
-        logical = sh._match_logical(path, tuple(t.shape))
-        out.append((t, logical.index(sh.TP) if sh.TP in logical else None))
 
-    tree_map_with_path(visit, params)
+def place_args(mesh, cfg: ModelConfig, kind: str, args: Dict[str, Any]) -> Dict[str, Any]:
+    """``args`` placed on the device mesh by the port's specs."""
+    from repro_torch.launch.shardings import to_shardings
+
+    def put(tree, specs):
+        return sh.distribute(tree, to_shardings(mesh, specs))
+
+    out = dict(args, batch=put(args["batch"], batch_pspec(mesh, args["batch"])))
+    if kind == "train":
+        out["state"] = put(args["state"], state_pspec(mesh, args["state"]))
+    else:
+        out["params"] = put(args["params"], state_pspec(mesh, args["params"]))
+        out["cache"] = put(args["cache"], cache_pspec(mesh, cfg, args["cache"]))
     return out
 
 
-class _Observer:
-    """Fans the port's constraint sites and launches out to each mesh's
-    count, and a kernel launch to the byte count."""
+def _collectives_child(spec_path: str, out_path: str) -> None:
+    """The counts of one mesh, in a process of its own: torch's built-in
+    "fake" process group of the mesh's size (its collectives move
+    nothing), the mesh, and per cell its fake arguments placed by the
+    port's specs and its program under ``use_mesh`` and
+    :class:`CollectiveRecorder`.  A cell that raises is reported, and the
+    next one runs."""
+    import pickle
 
-    def __init__(self, counts: List[MeshCount], nbytes: Optional[ByteCounter] = None) -> None:
-        self.counts = counts
-        self.nbytes = nbytes
+    import torch.distributed as dist
 
-    def shard(self, x, logical):
-        for c in self.counts:
-            c.shard(x, logical, _in_layer())
+    from repro_torch.launch.mesh import make_mesh
 
-    def residual(self, x):
-        for c in self.counts:
-            c.residual(x, _in_layer())
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    shape = dict(zip(spec["axis_names"], spec["mesh_shape"]))
+    _fake_mode_metadata()
+    dist.init_process_group("fake", rank=0, world_size=math.prod(spec["mesh_shape"]))
+    out = []
+    try:
+        mesh = make_mesh(shape["data"], shape["model"], shape.get("pod", 1), device="cpu")
+        assert tuple(mesh.mesh_dim_names) == tuple(spec["axis_names"]), mesh
+        for cell in spec["cells"]:
+            t0 = time.perf_counter()
+            try:
+                with FakeTensorMode():
+                    cfg, kind = cell["cfg"], cell["kind"]
+                    args = cell_args(cfg, kind, cell["B"], cell["S"], opt=cell["opt"],
+                                     cache_dtype=cell["cache_dtype"])
+                    args = place_args(mesh, cfg, kind, args)
+                    rec = _recorder_class()(mesh)
+                    with sh.use_mesh(mesh), rec:
+                        run_program(cfg, kind, args, cache_len=cell["cache_len"],
+                                    **cell["levers"])
+                out.append({"events": rec.events, "seconds": time.perf_counter() - t0})
+            except Exception:  # noqa: BLE001 - reported for this cell
+                out.append({"error": traceback.format_exc()[-4000:]})
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"cells": out}, f)
 
-    def placed_like(self, x, ref):
-        for c in self.counts:
-            c.placed_like(x, ref, _in_layer())
 
-    def launch(self, name, tensors, kw, run, kernel: bool):
-        for c in self.counts:
-            c.launch(name, tensors, _in_layer())
-        if kernel and self.nbytes is not None:
-            return self.nbytes.kernel(name, tensors, kw, run)
-        return run()
+def collective_cell(cfg: ModelConfig, kind: str, B: int, S: int, *, opt=None,
+                    cache_dtype=torch.bfloat16, cache_len=None, remat: bool = True,
+                    microbatches: int = 1, fused_ce: Optional[bool] = None,
+                    inplace: bool = False) -> Dict[str, Any]:
+    """One program for :func:`count_collectives_many`, as `count_program`
+    takes it."""
+    kind = "decode" if kind == "long_decode" else kind
+    if kind == "decode" and cache_len is None:
+        cache_len = S - 1
+    return {"cfg": cfg, "kind": kind, "B": B, "S": S, "opt": opt, "cache_dtype": cache_dtype,
+            "cache_len": cache_len,
+            "levers": dict(remat=remat, microbatches=microbatches, fused_ce=fused_ce,
+                           inplace=inplace)}
 
 
-_TRANSPOSE = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
-              "all-reduce": "all-reduce", "all-to-all": "all-to-all",
-              "collective-permute": "collective-permute"}
+def count_collectives_many(cells: Sequence[Dict[str, Any]], mesh, *,
+                           timeout: Optional[float] = None) -> List[Any]:
+    """DTensor's collectives of each program of ``cells``
+    (:func:`collective_cell`) on ``mesh`` (axis names and sizes), counted
+    one after another in one child process (:func:`_collectives_child`),
+    which inherits this process's environment (the hillclimb levers
+    ``REPRO_AXIS_MAP``, ``REPRO_SEQ_PARALLEL``, ``REPRO_FUSED_CE``).  ->
+    per cell its ``rl.CollectiveStats``, or the ``RuntimeError`` it raised
+    (with the child's traceback)."""
+    import pickle
+    import subprocess
+    import tempfile
+
+    import repro_torch
+
+    names = tuple(mesh.axis_names)
+    dims = [mesh.shape[a] for a in names]
+    src = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        spec_path, out_path = os.path.join(tmp, "spec.pkl"), os.path.join(tmp, "out.json")
+        with open(spec_path, "wb") as f:
+            pickle.dump({"cells": list(cells), "axis_names": names, "mesh_shape": dims}, f)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--collectives-of", spec_path,
+             out_path], env=env, capture_output=True, text=True, timeout=timeout)
+        if proc.returncode != 0 or not os.path.exists(out_path):
+            raise RuntimeError(f"the collective count on {mesh_name(mesh)} failed "
+                               f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        with open(out_path) as f:
+            got = json.load(f)["cells"]
+    return [RuntimeError(f"on {mesh_name(mesh)}:\n{c['error']}") if "error" in c
+            else event_stats(c["events"], dims) for c in got]
 
 
-def collective_stats(count: MeshCount, kind: str, *, remat: bool = True, microbatches: int = 1,
-                     params=None) -> rl.CollectiveStats:
-    """The step's collectives from one forward's events: a serving step is
-    that forward; a train step runs it per microbatch, the layers' again
-    under remat, each non-parameter collective's transpose in the backward,
-    and the gradient syncs."""
-    stats = rl.CollectiveStats()
-    for op, nbytes, n, link, what, in_layer in count.events:
-        if kind != "train":
-            stats.add(op, nbytes, n, link)
-            continue
-        fwd = microbatches * (2 if remat and in_layer else 1)
-        stats.add(op, nbytes, n, link, times=fwd)
-        if what != "param":  # the parameters' gradients are the syncs below
-            # the transpose of a reduce-scatter gathers its (n x larger) input
-            back = nbytes * n if op == "reduce-scatter" else nbytes / n \
-                if op == "all-gather" else nbytes
-            stats.add(_TRANSPOSE[op], back, n, link, times=microbatches)
-    if kind == "train":
-        for op, nbytes, n, link in count.grad_syncs(params):
-            stats.add(op, nbytes, n, link, times=microbatches)
-    return stats
+def count_collectives(cfg: ModelConfig, kind: str, B: int, S: int, mesh, *,
+                      timeout: Optional[float] = None, **kw) -> rl.CollectiveStats:
+    """DTensor's collectives of one program on ``mesh`` (a child process,
+    :func:`count_collectives_many`); ``kw`` as :func:`collective_cell`."""
+    [got] = count_collectives_many([collective_cell(cfg, kind, B, S, **kw)], mesh,
+                                   timeout=timeout)
+    if isinstance(got, Exception):
+        raise got
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -762,50 +627,38 @@ class ProgramCount:
 def count_program(cfg: ModelConfig, kind: str, B: int, S: int, meshes: Sequence, *,
                   opt=None, remat: bool = True, microbatches: int = 1,
                   fused_ce: Optional[bool] = None, inplace: bool = False,
-                  cache_dtype=torch.bfloat16, cache_len=None) -> ProgramCount:
+                  cache_dtype=torch.bfloat16, cache_len=None,
+                  timeout: Optional[float] = None) -> ProgramCount:
     """Run the port's program once on fake CPU tensors and count it: FLOPs,
-    bytes, and per mesh of ``meshes`` the collectives and memory.  ``kind``
+    bytes, and per mesh of ``meshes`` the memory and DTensor's collectives
+    (:func:`count_collectives`, a child process per mesh of more than one
+    device; ``timeout`` its limit in seconds).  ``kind``
     "train": ``make_train_step`` on B x S tokens (``opt`` default: AdamW
     1e-4 with bf16 moments); "prefill": B x S prompt into a cache of S;
     "decode"/"long_decode": one token per row against a cache of S at
     ``cache_len`` (default S - 1; a list of B ints is the per-row form, as
     the continuous engine decodes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
+    kind = "decode" if kind == "long_decode" else kind
     clen = S - 1 if cache_len is None else cache_len
     attend = ([n + 1 for n in clen] if isinstance(clen, (list, tuple)) else [clen + 1] * B) \
-        if kind in ("decode", "long_decode") else None
-    with FakeTensorMode():
-        args = cell_args(cfg, kind, B, S, opt=opt, cache_dtype=cache_dtype)
-        batch = args["batch"]
-        flops, nbytes = FlopCounterMode(display=False), ByteCounter(attend)
-        if kind == "train":
-            state = args["state"]
-            params = state.params
-            step = make_train_step(cfg, args["opt"], remat=remat, microbatches=microbatches,
-                                   fused_ce=fused_ce, inplace=inplace)
-            with flops, nbytes, observe(_Observer([], nbytes)):
-                outputs = step(state, batch)
-            micro = {k: v[: B // microbatches] for k, v in batch.items()}
-            counts = [MeshCount(m, cfg, params, batch=micro) for m in meshes]
-            if any(math.prod(m.shape.values()) > 1 for m in meshes):  # else nothing moves
-                loss_fn = make_loss_fn(cfg, remat=False, fused_ce=fused_ce)
-                with torch.no_grad(), observe(_Observer(counts)), ParamUses(counts, params):
-                    loss_fn(params, micro)
-        else:
-            params, cache = args["params"], args["cache"]
-            counts = [MeshCount(m, cfg, params, cache=cache, batch=batch) for m in meshes]
-            with torch.no_grad(), flops, nbytes, observe(_Observer(counts, nbytes)), \
-                    ParamUses(counts, params):
-                if kind == "prefill":
-                    outputs = prefill(params, cfg, batch, cache)
-                else:
-                    if isinstance(clen, (list, tuple)):  # the per-row form
-                        clen = torch.tensor(clen, dtype=torch.int32)
-                    outputs = decode_step(params, cfg, batch["tokens"], cache, clen)
-        memory = {mesh_name(m): memory_stats(m, cfg, kind, args, outputs) for m in meshes}
-    collectives = {mesh_name(m): collective_stats(c, kind, remat=remat,
-                                                  microbatches=microbatches, params=params)
-                   for m, c in zip(meshes, counts)}
+        if kind == "decode" else None
+    levers = dict(remat=remat, microbatches=microbatches, fused_ce=fused_ce, inplace=inplace)
+    multi = [m for m in meshes if math.prod(m.shape.values()) > 1]  # one device moves nothing
+    with ThreadPoolExecutor(max(1, len(multi))) as pool:  # the children run meanwhile
+        pending = {mesh_name(m): pool.submit(
+            count_collectives, cfg, kind, B, S, m, opt=opt, cache_dtype=cache_dtype,
+            cache_len=clen, timeout=timeout, **levers) for m in multi}
+        with FakeTensorMode():
+            args = cell_args(cfg, kind, B, S, opt=opt, cache_dtype=cache_dtype)
+            flops, nbytes = FlopCounterMode(display=False), ByteCounter(attend)
+            with flops, nbytes, observe(nbytes):
+                outputs = run_program(cfg, kind, args, cache_len=clen, **levers)
+            memory = {mesh_name(m): memory_stats(m, cfg, kind, args, outputs) for m in meshes}
+        collectives = {mesh_name(m): pending[mesh_name(m)].result() if mesh_name(m) in pending
+                       else rl.CollectiveStats() for m in meshes}
     return ProgramCount(flops=float(flops.get_total_flops()), bytes=float(nbytes.bytes),
                         ops=nbytes.ops, seconds=time.perf_counter() - t0,
                         collectives=collectives, memory=memory)
@@ -844,7 +697,7 @@ def analyze(arch: str, shape_name: str, meshes: Sequence, *, microbatches: int =
             collective_by_op=dict(colls.by_op),
             collective_counts=dict(colls.counts),
             memory_stats=count.memory[name],
-            link=link, link_bw=link_bw, collective_in_bound=False,
+            link=link, link_bw=link_bw,
         ).finalize()
         d = roof.to_dict()
         d.update({
@@ -931,7 +784,12 @@ def main() -> int:
     ap.add_argument("--single-only", action="store_true")
     ap.add_argument("--skip-done", action="store_true")
     ap.add_argument("--report-dir", default=REPORT_DIR, help="where each cell's JSON goes")
+    ap.add_argument("--collectives-of", nargs=2, metavar=("SPEC", "OUT"),
+                    help="(a child of count_collectives) count one mesh's collectives")
     args = ap.parse_args()
+    if args.collectives_of:
+        _collectives_child(*args.collectives_of)
+        return 0
     if args.all or (args.arch and not args.shape) or (args.shape and not args.arch):
         return run_all(args)
     if not args.arch:

@@ -6,7 +6,8 @@ which the caller makes first (``torch.distributed.init_process_group`` with
 its address, world size and rank): NCCL on the card, gloo on the CPU.
 :func:`abstract_production_mesh` needs neither: it names the production
 axes and sizes (`models.sharding.AbstractMesh`), which the sharding rules
-and the dry-run read.
+and the dry-run's memory count read; the dry-run's collective count
+builds the device mesh itself, on a fake process group of its size.
 Meshes are on ``cuda`` unless the caller passes ``device="cpu"``; asking for
 ``cuda`` with no GPU raises (`repro_torch.resolve_device`).
 """

@@ -25,7 +25,7 @@ from repro_torch.kernels import ops
 
 from .cache_update import write_row, write_segment
 from .layers import Params, apply_rope, dense_init, rmsnorm, rmsnorm_init
-from .sharding import DP, TP, axis_size, current_mesh, describe, physical_axes, shard
+from .sharding import DP, TP, axis_size, current_mesh, describe, physical_axes, reshape, shard
 
 
 def attn_init(gen, cfg: ModelConfig, *, q_in_dim: Optional[int] = None,
@@ -85,9 +85,11 @@ def cache_logical_spec(cfg: ModelConfig, tp_size: int, batch: int) -> Tuple:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
+    """einsum("bsd,dhk->bshk") as one matrix product; under a mesh the
+    heads are split off the product only where the mesh dim sharding them
+    divides them (`sharding.reshape`)."""
     B, S, _ = x.shape
-    return (x @ w.reshape(w.shape[0], -1)).view(B, S, w.shape[1], w.shape[2])
+    return reshape(x @ w.reshape(w.shape[0], -1), (B, S, w.shape[1], w.shape[2]))
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .sharding import reshape
+
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -122,7 +124,7 @@ def causal_conv1d(
 def grouped_rmsnorm(x: torch.Tensor, w: torch.Tensor, n_groups: int, eps: float = 1e-6) -> torch.Tensor:
     """Per-group RMS norm over the channel dim (the Mamba2 gated norm)."""
     B, S, C = x.shape
-    xg = x.reshape(B, S, n_groups, C // n_groups).float()
+    xg = reshape(x, (B, S, n_groups, C // n_groups)).float()
     var = (xg * xg).mean(dim=-1, keepdim=True)
-    xn = (xg * torch.rsqrt(var + eps)).reshape(B, S, C)
+    xn = reshape(xg * torch.rsqrt(var + eps), (B, S, C))
     return (xn * (1.0 + w.float())).to(x.dtype)

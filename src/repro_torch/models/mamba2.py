@@ -20,7 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 from .layers import Params, causal_conv1d, dense_init, grouped_rmsnorm
-from .sharding import DP, TP, placed_like, residual_shard, shard
+from .sharding import DP, TP, placed_like, residual_shard, shard, sublayer_input
 
 
 def _dims(cfg: ModelConfig):
@@ -92,7 +92,7 @@ def mamba2_apply(
     G, N = s.num_groups, s.state_dim
     gn = G * N
 
-    z, xBC, dt = _split_proj(cfg, shard(x @ p["in_proj"], DP, None, TP))
+    z, xBC, dt = _split_proj(cfg, shard(sublayer_input(x) @ p["in_proj"], DP, None, TP))
     xBC, new_conv = causal_conv1d(
         xBC, p["conv_kernel"], p["conv_bias"], None if state is None else state["conv"]
     )

@@ -40,7 +40,7 @@ from . import mla as mla_mod
 from . import transformer as tfm
 from . import xlstm as xl
 from .layers import Params, dtype_of, embed_init, rmsnorm, rmsnorm_init, softcap
-from .sharding import DP, TP, residual_shard, shard
+from .sharding import DP, TP, residual_shard, shard, whole_gradient
 
 Batch = Dict[str, torch.Tensor]
 
@@ -108,7 +108,10 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Te
     h = F.embedding(tokens, table) if is_dtensor(table) else table[tokens]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
-    return h
+    # the lookup's partial rows summed here, in the residual stream's layout
+    # (DTensor cannot add them to another partial sum: deepseek's MTP input),
+    # and the gradient reduced before the lookup's backward
+    return whole_gradient(residual_shard(h)) if h.dim() == 3 else h
 
 
 def head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:

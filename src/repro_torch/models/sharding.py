@@ -28,10 +28,13 @@ DTensor arithmetic as replicated.  :func:`shard` and
 ambient, and importing this module does not import
 ``torch.distributed.tensor``.
 
-With no mesh, an observer set by `repro_torch.util.observe` sees every
-constraint site (``shard``, ``residual_shard``, ``placed_like``) on plain
-tensors: the dry-run (`repro_torch.launch.dryrun`) prices from these what
-a mesh would move.
+Where XLA would partition a line by itself, the port names the layout:
+:func:`reshape` replicates a mesh dim whose shard a reshape cannot carry
+(8 KV heads split off over 16), in the forward and the backward;
+:func:`sublayer_input` and :func:`residual_shard` around each sublayer
+give Megatron's layout, which keeps DTensor from sequence-sharding a
+residual sum; :func:`whole_gradient` reduces a gradient before a backward
+that cannot take it partial.
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ import os
 import re
 from typing import Any, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
-from repro_torch.util import is_dtensor, observer, tree_map_with_path
+import torch
+
+from repro_torch.util import is_dtensor, tree_map_with_path
 
 DP = "dp"  # data-parallel / FSDP logical axis -> ("pod","data") subset
 TP = "tp"  # tensor/expert-parallel logical axis -> "model"
@@ -185,8 +190,6 @@ def shard(x, *logical):
     (JAX's ``with_sharding_constraint``); with no mesh, or a plain tensor,
     ``x`` itself."""
     mesh = _MESH.get()
-    if mesh is None and observer() is not None:
-        observer().shard(x, logical)
     if mesh is None or not is_dtensor(x):
         return x
     if len(logical) != x.ndim:
@@ -199,8 +202,6 @@ def residual_shard(x):
     """Constraint for the (B, S, D) residual stream between blocks: batch
     over dp, and — under sequence parallelism — S over tp."""
     mesh = _MESH.get()
-    if mesh is None and x.ndim == 3 and observer() is not None:
-        observer().residual(x)
     if mesh is None or x.ndim != 3:
         return x
     tp_ax = physical_axes(mesh, TP)
@@ -211,13 +212,99 @@ def residual_shard(x):
     return shard(x, DP, None, None)
 
 
+def _view_groups(in_shape, out_shape):
+    """The dims of a reshape grouped where both shapes' prefix products
+    meet: a list of (input dims, output dims), size-1 dims left out."""
+    ins = [d for d, n in enumerate(in_shape) if n != 1]
+    outs = [d for d, n in enumerate(out_shape) if n != 1]
+    groups, i, j = [], 0, 0
+    while i < len(ins) and j < len(outs):
+        gi, go = [ins[i]], [outs[j]]
+        a, b = in_shape[ins[i]], out_shape[outs[j]]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b:
+                gi.append(ins[i])
+                a *= in_shape[ins[i]]
+                i += 1
+            else:
+                go.append(outs[j])
+                b *= out_shape[outs[j]]
+                j += 1
+        groups.append((gi, go))
+    return groups
+
+
+def _carried(x, shape):
+    """``x`` replicated on each mesh dim whose shard a reshape to ``shape``
+    cannot carry: one on a dim that is not the first of those the reshape
+    merges or splits, or one that does not divide the first part the
+    reshape splits that dim into (DTensor refuses a view that unflattens 8
+    KV heads sharded over 16)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    first = {}
+    for ins, outs in _view_groups(tuple(x.shape), tuple(shape)):
+        for d in ins:
+            first[d] = (d == ins[0], shape[outs[0]] if outs else 1)
+    mesh, pl = x.device_mesh, list(x.placements)
+    for m, p in enumerate(pl):
+        if type(p) is Shard:
+            lead, outer = first.get(p.dim, (True, mesh.size(m)))
+            if not lead or outer % mesh.size(m) or x.shape[p.dim] % mesh.size(m):
+                pl[m] = Replicate()
+    return x if pl == list(x.placements) else x.redistribute(mesh, tuple(pl))
+
+
+class _FitReshape(torch.autograd.Function):
+    """A DTensor reshape whose input, and in the backward whose gradient,
+    is first laid out so that the reshape can carry it."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        return _carried(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _carried(g, ctx.in_shape).reshape(ctx.in_shape), None
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``.  A DTensor is first replicated on each mesh
+    dim whose shard the reshape cannot carry, and so is its gradient before
+    the backward's reshape back: where a split head dim meets a mesh dim
+    it does not divide (GQA's 8 KV heads, xLSTM's 4 heads, a grouped norm's
+    2 groups over 16), XLA pads the dim and DTensor's views raise."""
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    return _FitReshape.apply(x, tuple(shape))
+
+
+def sublayer_input(x):
+    """A sublayer's (B, S, D) input laid out for its products: batch over
+    dp, the rest whole (Megatron's gather of a sequence-parallel stream).
+    With :func:`residual_shard` on each sublayer's output before its
+    residual add, this keeps DTensor from laying a sum out sequence-sharded,
+    which a product that flattens (B, S) turns into a strided shard in the
+    forward or the backward: at the production meshes DTensor then prices
+    each strategy over index tensors of B x S entries."""
+    return shard(x, DP, None, None)
+
+
+def whole_gradient(x):
+    """``x``; a DTensor's gradient is brought to ``x``'s placements here in
+    the backward, a partial sum reduced.  A vocab-parallel lookup's
+    backward cannot take a partial gradient, which the first layer's
+    products give."""
+    return x.redistribute(x.device_mesh, x.placements) if is_dtensor(x) else x
+
+
 def placed_like(x, ref):
     """``x`` in the placements of ``ref``, the destination of an in-place
     write, where both are DTensors; otherwise ``x``.  DTensor keeps an
     in-place op's destination placements and refuses a source that would
     change them, where JAX returns a new array."""
-    if observer() is not None and _MESH.get() is None:
-        observer().placed_like(x, ref)
     if is_dtensor(ref) and is_dtensor(x) and tuple(x.placements) != tuple(ref.placements):
         return x.redistribute(ref.device_mesh, ref.placements)
     return x

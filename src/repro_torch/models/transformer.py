@@ -31,7 +31,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.util import scope
 
 from . import attention as attn
 from . import mamba2 as mb
@@ -39,17 +38,15 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import xlstm as xl
 from .layers import Params, _normal, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
-from .sharding import residual_shard
+from .sharding import residual_shard, sublayer_input
 
 
 def _call(fn, remat: bool, *args, **kw):
-    """``fn(*args, **kw)``, in the scope "layer" (`util.scope`); under
-    ``remat`` recomputed in the backward pass from its inputs instead of
-    saving its activations."""
-    with scope("layer"):
-        if not remat:
-            return fn(*args, **kw)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    """``fn(*args, **kw)``; under ``remat`` recomputed in the backward pass
+    from its inputs instead of saving its activations."""
+    if not remat:
+        return fn(*args, **kw)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def layer_period(cfg: ModelConfig) -> int:
@@ -96,7 +93,7 @@ def decoder_layer_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
     """-> (h, cache, MoE aux loss or None for an MLP layer)."""
     h = residual_shard(h)
-    x = rmsnorm(h, p["ln1"], eps=cfg.rms_eps)
+    x = sublayer_input(rmsnorm(h, p["ln1"], eps=cfg.rms_eps))
     if cfg.mla is not None:
         a_out, new_cache = mla_mod.mla_apply(
             p["attn"], x, cfg, positions=positions, cache=cache, cache_len=cache_len,
@@ -106,15 +103,17 @@ def decoder_layer_apply(
             p["attn"], x, cfg, window=window, positions=positions, cache=cache,
             cache_len=cache_len, attend_len=attend_len,
         )
+    a_out = residual_shard(a_out)
     if cfg.sandwich_norm:
         a_out = rmsnorm(a_out, p["ln1_post"], eps=cfg.rms_eps)
     h = h + a_out
-    x = rmsnorm(h, p["ln2"], eps=cfg.rms_eps)
+    x = sublayer_input(rmsnorm(h, p["ln2"], eps=cfg.rms_eps))
     aux = None
     if use_moe:
         m_out, aux = moe_mod.moe_apply(p["moe"], x, cfg)
     else:
         m_out = mlp_apply(p["mlp"], x, cfg.act)
+    m_out = residual_shard(m_out)
     if cfg.sandwich_norm:
         m_out = rmsnorm(m_out, p["ln2_post"], eps=cfg.rms_eps)
     return h + m_out, new_cache, aux
@@ -174,10 +173,11 @@ def encoder_stage_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device="cp
 
 
 def encoder_layer_apply(lp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
+    x = sublayer_input(rmsnorm(h, lp["ln1"], eps=cfg.rms_eps))
     a, _ = attn.attn_apply(lp["attn"], x, cfg, causal=False, use_rope=False)
-    h = h + a
-    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+    h = h + residual_shard(a)
+    x = sublayer_input(rmsnorm(h, lp["ln2"], eps=cfg.rms_eps))
+    return h + residual_shard(mlp_apply(lp["mlp"], x, cfg.act))
 
 
 def encoder_stage_apply(layers: List[Params], h: torch.Tensor, cfg: ModelConfig, *,
@@ -221,14 +221,14 @@ def xdecoder_layer_apply(
 ) -> torch.Tensor:
     """Self-attention, cross-attention over the encoder output (or the
     layer cache ``c``'s "cross" K/V), MLP."""
-    x = rmsnorm(h, lp["ln1"], eps=cfg.rms_eps)
+    x = sublayer_input(rmsnorm(h, lp["ln1"], eps=cfg.rms_eps))
     a, _ = attn.attn_apply(
         lp["self_attn"], x, cfg, positions=positions,
         cache=None if c is None else c["self"], cache_len=cache_len,
         attend_len=attend_len, use_rope=False,
     )
-    h = h + a
-    x = rmsnorm(h, lp["ln_x"], eps=cfg.rms_eps)
+    h = h + residual_shard(a)
+    x = sublayer_input(rmsnorm(h, lp["ln_x"], eps=cfg.rms_eps))
     if c is not None and "cross" in c:
         ck, cv = c["cross"]["k"], c["cross"]["v"]
     else:
@@ -236,8 +236,9 @@ def xdecoder_layer_apply(
         if c is not None:
             c["cross"] = {"k": ck, "v": cv}
     a, _ = attn.attn_apply(lp["cross_attn"], x, cfg, cross_kv=(ck, cv))
-    h = h + a
-    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], eps=cfg.rms_eps), cfg.act)
+    h = h + residual_shard(a)
+    x = sublayer_input(rmsnorm(h, lp["ln2"], eps=cfg.rms_eps))
+    return h + residual_shard(mlp_apply(lp["mlp"], x, cfg.act))
 
 
 def xdecoder_stage_apply(
@@ -298,11 +299,12 @@ def shared_attn_block_apply(
     """Attention and MLP over [h | h0], both normed from the same concat."""
     xcat = torch.cat([h, h0], dim=-1)  # (B, S, 2D)
     a, _ = attn.attn_apply(
-        p["attn"], rmsnorm(xcat, p["ln"], eps=cfg.rms_eps), cfg, positions=positions,
-        cache=cache, cache_len=cache_len, attend_len=attend_len,
+        p["attn"], sublayer_input(rmsnorm(xcat, p["ln"], eps=cfg.rms_eps)), cfg,
+        positions=positions, cache=cache, cache_len=cache_len, attend_len=attend_len,
     )
-    h = h + a
-    return h + mlp_apply(p["mlp"], rmsnorm(xcat, p["ln2"], eps=cfg.rms_eps), cfg.act)
+    h = h + residual_shard(a)
+    x = sublayer_input(rmsnorm(xcat, p["ln2"], eps=cfg.rms_eps))
+    return h + residual_shard(mlp_apply(p["mlp"], x, cfg.act))
 
 
 def hybrid_shape(cfg: ModelConfig) -> Tuple[int, int, int]:

@@ -38,7 +38,7 @@ from repro_torch.kernels.mlstm import gate_cumsum
 from .layers import (
     Params, _normal, causal_conv1d, dense_init, grouped_rmsnorm, rmsnorm, rmsnorm_init,
 )
-from .sharding import DP, TP, shard
+from .sharding import DP, TP, placed_like, reshape, residual_shard, shard, sublayer_input
 
 State = Dict[str, torch.Tensor]
 
@@ -91,7 +91,7 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu") -> State:
 def _headwise(x: torch.Tensor, w: torch.Tensor, nh: int) -> torch.Tensor:
     """(B, S, d_in) x (nh, hd, hd) -> (B, S, nh, hd)"""
     B, S, d_in = x.shape
-    return torch.einsum("bshi,hij->bshj", x.reshape(B, S, nh, d_in // nh), w)
+    return torch.einsum("bshi,hij->bshj", reshape(x, (B, S, nh, d_in // nh)), w)
 
 
 def mlstm_prefill_state(
@@ -138,7 +138,7 @@ def mlstm_block_apply(
     _, d_in, nh, _ = _mdims(cfg)
     B, S, _ = h.shape
 
-    up = shard(rmsnorm(h, p["norm"], eps=cfg.rms_eps) @ p["w_up"], DP, None, TP)
+    up = shard(sublayer_input(rmsnorm(h, p["norm"], eps=cfg.rms_eps)) @ p["w_up"], DP, None, TP)
     xb, z = up[..., :d_in], up[..., d_in:]
     xc, new_conv = causal_conv1d(
         xb, p["conv_kernel"], p["conv_bias"], None if state is None else state["conv"]
@@ -167,7 +167,7 @@ def mlstm_block_apply(
     out = grouped_rmsnorm(out.reshape(B, S, d_in), p["gn"], n_groups=nh, eps=cfg.rms_eps)
     out = out + xc * p["skip"][None, None, :]
     out = out * F.silu(z)
-    return h + out @ p["w_down"], state
+    return h + residual_shard(out @ p["w_down"]), state
 
 
 # ---------------------------------------------------------------------------
@@ -209,26 +209,6 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu") -> State:
     }
 
 
-def _slstm_cell_step(r_kernel, carry, gx_t):
-    """One step: ``r_kernel`` (nh, hd, 4 hd) is the recurrent weight with
-    its last two axes flattened, ``gx_t`` (B, nh, hd, 4)."""
-    c, n, m, h = carry
-    B, nh, hd = h.shape
-    rec = torch.bmm(h.transpose(0, 1), r_kernel).transpose(0, 1).reshape(B, nh, hd, 4)
-    pre = gx_t + rec
-    i_t, f_t = pre[..., 0], pre[..., 1]
-    z_t = torch.tanh(pre[..., 2])
-    o_t = torch.sigmoid(pre[..., 3])
-    logf = F.logsigmoid(f_t)
-    m_new = torch.maximum(logf + m, i_t)
-    igate = torch.exp(i_t - m_new)
-    fgate = torch.exp(logf + m - m_new)
-    c_new = fgate * c + igate * z_t
-    n_new = fgate * n + igate
-    h_new = o_t * c_new / torch.clamp_min(n_new, 1.0)
-    return c_new, n_new, m_new, h_new
-
-
 def slstm_block_apply(
     p: Params,
     h: torch.Tensor,  # (B, S, D)
@@ -243,7 +223,7 @@ def slstm_block_apply(
     hd = cfg.d_model // nh
     B, S, D = h.shape
 
-    xin = rmsnorm(h, p["norm"], eps=cfg.rms_eps)
+    xin = sublayer_input(rmsnorm(h, p["norm"], eps=cfg.rms_eps))
     xc, new_conv = causal_conv1d(
         xin, p["conv_kernel"], p["conv_bias"], None if state is None else state["conv"]
     )
@@ -255,16 +235,12 @@ def slstm_block_apply(
     else:
         z = torch.zeros((B, nh, hd), dtype=torch.float32, device=h.device)
         carry = (z, z, torch.full_like(z, -1e9), z)
-    r = p["r_kernel"].reshape(nh, hd, hd * 4)
-    hs = []
-    for t in range(S):
-        carry = _slstm_cell_step(r, carry, gx[:, t])
-        hs.append(carry[3])
-    out = torch.stack(hs, dim=1).reshape(B, S, D).to(h.dtype)
+    hs, *carry = ops.slstm_recurrence(gx, p["r_kernel"].reshape(nh, hd, hd * 4), *carry)
+    out = hs.reshape(B, S, D).to(h.dtype)
     out = grouped_rmsnorm(out, p["gn"], n_groups=nh, eps=cfg.rms_eps)
     ff = (F.gelu(out @ p["w_gate"], approximate="tanh") * (out @ p["w_up"])) @ p["w_down"]
     if state is not None:
         state["conv"].copy_(new_conv)
         for key, val in zip(("c", "n", "m", "h"), carry):
-            state[key].copy_(val)
-    return h + ff, state
+            state[key].copy_(placed_like(val, state[key]))
+    return h + residual_shard(ff), state

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.util import is_dtensor
+
 IGNORE = -1
 NEG = -1e30
 
@@ -103,6 +105,32 @@ def fused_cross_entropy(
     final_softcap: Optional[float] = None,
     vocab_chunk: int = 8192,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (summed nll fp32, token count); never materialises (N, V)."""
+    """-> (summed nll fp32, token count); never materialises (N, V).
+    DTensor inputs run it on each rank's rows (:func:`_on_local_rows`)."""
     c = min(vocab_chunk, W.shape[1])
+    if any(is_dtensor(t) for t in (h, W, labels)):
+        return _on_local_rows(h, W, labels, final_softcap or None, c)
     return _FusedCE.apply(h, W, labels, final_softcap or None, c)
+
+
+def _on_local_rows(h, W, labels, cap, c):
+    """The fused CE on a mesh: each rank's rows of ``h`` and ``labels``
+    (split as ``h``'s first dim is, over whole mesh dims) against the whole
+    head, through ``local_map``; both sums are partial over the mesh dims
+    that split the rows, and so is the head's gradient.  DTensor cannot run
+    the chunk loop's gathers and in-place sums on sharded operands."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(t.device_mesh for t in (h, W, labels) if isinstance(t, DTensor))
+    whole = [Replicate()] * mesh.ndim
+    split = [isinstance(h, DTensor) and type(p) is Shard and p.dim == 0 for p in
+             (h.placements if isinstance(h, DTensor) else whole)]
+    rows = [Shard(0) if s else Replicate() for s in split]
+    sums = [Partial() if s else Replicate() for s in split]
+    fn = local_map(lambda h, W, y: _FusedCE.apply(h, W, y, cap, c), (sums, sums),
+                   (rows, whole, rows), (rows, sums, rows), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(*(t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, whole,
+                                                                    run_check=False)
+                for t in (h, W, labels)))

@@ -1,6 +1,6 @@
 """Tree helpers for nested dict/list/tuple containers of leaves (the port's
 stand-in for `jax.tree_util` on parameter and cache trees), and the hooks
-an observer of a run sees (:func:`observe`, :func:`scope`)."""
+an observer of a run sees (:func:`observe`)."""
 
 from __future__ import annotations
 
@@ -83,21 +83,17 @@ def is_dtensor(x: Any) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# observation: what a run with no mesh would do on one (`launch.dryrun`)
+# observation: the kernel launches of a run (`launch.dryrun` counts bytes)
 # ---------------------------------------------------------------------------
 
 _OBSERVER: contextvars.ContextVar = contextvars.ContextVar("repro_torch_observer", default=None)
-_SCOPES: contextvars.ContextVar = contextvars.ContextVar("repro_torch_scopes", default=())
 
 
 @contextlib.contextmanager
 def observe(obs) -> Iterator[Any]:
-    """Make ``obs`` see the body's constraint sites and kernel calls where
-    no mesh is ambient: ``obs.shard(x, logical)``, ``obs.residual(x)``,
-    ``obs.placed_like(x, ref)`` (`models.sharding`) and
-    ``obs.launch(name, tensors, kw, run, kernel)`` (`kernels.ops`, which
-    returns ``run()``).  Each site still computes what it computes
-    unobserved."""
+    """Make ``obs`` see the body's kernel launches on plain tensors:
+    ``obs.launch(name, tensors, kw, run)`` (`kernels.ops`), which returns
+    ``run()``, the launch itself."""
     token = _OBSERVER.set(obs)
     try:
         yield obs
@@ -108,19 +104,3 @@ def observe(obs) -> Iterator[Any]:
 def observer():
     """The observer of the innermost :func:`observe`, or None."""
     return _OBSERVER.get()
-
-
-@contextlib.contextmanager
-def scope(name: str) -> Iterator[None]:
-    """Mark the body as running inside ``name`` (a model layer) for
-    :func:`scopes`."""
-    token = _SCOPES.set(_SCOPES.get() + (name,))
-    try:
-        yield
-    finally:
-        _SCOPES.reset(token)
-
-
-def scopes() -> Tuple[str, ...]:
-    """The names of the enclosing scopes (:func:`scope`), outermost first."""
-    return _SCOPES.get()

@@ -17,10 +17,10 @@ identical.  Parameters, batches, caches and train states are placed by the
 port's rules (`models.sharding.param_sharding`, `launch.shardings`).
 
 The ``*_collectives`` cases run one train step (llama3, olmoe, zamba2) or
-one decode step (llama3) on the (2, 2) mesh under ``CommDebugMode`` and
-record every collective; `test_dryrun_collectives_beside_dtensor` sets
-the dry-run's count of the same step beside it (see the comment above
-it: the two are not equal).
+one decode step (llama3) on the (2, 2) mesh under the dry-run's
+``CollectiveRecorder`` (``CommDebugMode``) and record every collective;
+`test_dryrun_collectives_beside_dtensor` holds the dry-run's count of the
+same step, made on torch's fake process group, equal to it op for op.
 """
 
 from __future__ import annotations
@@ -80,6 +80,8 @@ def _cfg(arch):
         return dataclasses.replace(base, n_layers=2)
     if arch == "zamba2-1.2b":  # one period: a super block of Mamba layers, the shared block
         return dataclasses.replace(base, n_layers=base.shared_attn_every)
+    if arch == "deepseek-v3-671b":  # MLA, the dense prefix, MoE and the MTP head
+        return base
     return dataclasses.replace(base, n_layers=base.xlstm.slstm_every)  # one xLSTM group
 
 
@@ -120,7 +122,7 @@ def _close(a, b, tol, what):
     assert err <= tol, f"{what}: max abs error {err} > {tol}"
 
 
-def _forward_and_grads(arch, dp, tp, grads=True):
+def _forward_and_grads(arch, dp, tp, grads=True, seq=8, fused_ce=False):
     from repro_torch.launch.shardings import batch_pspec
     from repro_torch.models import forward
     from repro_torch.models.sharding import param_pspec, use_mesh
@@ -129,9 +131,9 @@ def _forward_and_grads(arch, dp, tp, grads=True):
 
     cfg, mesh = _cfg(arch), _mesh(dp, tp)
     p = _params(cfg)
-    tokens = _tokens(cfg, 4, 9)
+    tokens = _tokens(cfg, 4, seq + 1)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, fused_ce=fused_ce)
     ref = forward(p, cfg, batch)[0]
     sp = _place(p, mesh, param_pspec(mesh, p))
     sbatch = _place(batch, mesh, batch_pspec(mesh, batch))
@@ -223,67 +225,44 @@ def case_llama_gqa_tp_above_kv_heads():
     assert cache["decoder"][0]["k"].placements == (Shard(0), Shard(1))
 
 
-_FUNCOLS = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
-            "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
-
-
 def _record_collectives(arch, kind):
     """One train step (remat, AdamW with bf16 moments) or one decode step of
-    ``arch`` on the (2, 2) mesh under ``CommDebugMode``, whose record this
-    extends by each collective's result bytes and the port's innermost
-    frame: rank 0 writes {op: [count, result bytes]} and {site: {op:
-    count}} for the test to hold the dry-run's count to."""
-    import traceback as tb
-
-    from torch.distributed.tensor.debug import CommDebugMode
-
+    ``arch`` on the (2, 2) mesh under the dry-run's ``CollectiveRecorder``,
+    on the dry-run's input dtypes (int32 tokens): rank 0 writes every
+    recorded (op, result bytes, group's mesh dims) for the test to hold the
+    dry-run's count to."""
+    from repro_torch.launch import dryrun
     from repro_torch.launch.shardings import batch_pspec, cache_pspec, state_pspec
     from repro_torch.models import decode_step, init_cache
     from repro_torch.models.sharding import param_pspec, use_mesh
     from repro_torch.train import TrainState, adamw, make_train_step
 
-    ops, sites = {}, {}
-
-    class Recording(CommDebugMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            name = _FUNCOLS.get(getattr(func, "__name__", "").split(".")[0])
-            if name is not None and isinstance(out, torch.Tensor):
-                c = ops.setdefault(name, [0, 0])
-                c[0] += 1
-                c[1] += out.numel() * out.element_size()
-                frames = [f for f in tb.extract_stack() if "repro_torch" in f.filename]
-                site = (f"{os.path.basename(frames[-1].filename)}:{frames[-1].name}"
-                        if frames else "?")
-                by = sites.setdefault(site, {})
-                by[name] = by.get(name, 0) + 1
-            return out
-
     cfg, mesh = _cfg(arch), _mesh(2, 2)
     p = _params(cfg)
+    rec = dryrun.CollectiveRecorder(mesh)
     if kind == "train":
         opt = adamw(1e-4, moment_dtype=torch.bfloat16)
         state = TrainState(p, opt.init(p))
         state = _place(state, mesh, state_pspec(mesh, state))
-        tokens = _tokens(cfg, TRAIN_B, TRAIN_S + 1)
+        tokens = _tokens(cfg, TRAIN_B, TRAIN_S + 1).to(torch.int32)
         batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
         batch = _place(batch, mesh, batch_pspec(mesh, batch))
         step = make_train_step(cfg, opt, remat=True, fused_ce=False)
-        with use_mesh(mesh), Recording():
+        with use_mesh(mesh), rec:
             step(state, batch)
     else:
         params = _place(p, mesh, param_pspec(mesh, p))
         cache = init_cache(cfg, DECODE_B, DECODE_S, torch.float32, "cpu")
         cache = _place(cache, mesh, cache_pspec(mesh, cfg, cache))
-        toks = {"tokens": _tokens(cfg, DECODE_B, 1)}
+        toks = {"tokens": _tokens(cfg, DECODE_B, 1).to(torch.int32)}
         toks = _place(toks, mesh, batch_pspec(mesh, toks))["tokens"]
-        with torch.no_grad(), use_mesh(mesh), Recording():
+        with torch.no_grad(), use_mesh(mesh), rec:
             decode_step(params, cfg, toks, cache, DECODE_LEN)
     import torch.distributed as dist
 
     if dist.get_rank() == 0:
         with open(os.path.join(OUT_DIR, f"collectives_{arch}_{kind}.json"), "w") as f:
-            json.dump({"ops": ops, "sites": sites}, f)
+            json.dump({"events": rec.events}, f)
 
 
 def case_llama_train_step_collectives():
@@ -399,20 +378,10 @@ if __name__ == "__main__":
     rank_main({name: globals()["case_" + name] for name in CASES}, sys.argv[1:])
 
 
-# The dry-run's count of each collective case's step on
-# ``AbstractMesh((2, 2))`` is not DTensor's on the gloo mesh: the dry-run
-# prices an FSDP + Megatron program at the port's constraint sites
-# (parameter gathers per use, one tensor-parallel reduction per
-# row-parallel product, the sites' redistributions), while DTensor picks
-# each op's placements by its own cost model: it gathers weights over both
-# mesh dims, reduce-scatters the partial sums that reach an RMSNorm and
-# gathers them back, re-lays residual adds, and gloo runs an all-to-all as
-# an all-gather.  So the dry-run keeps its collective term out of every
-# cell's bound (``collective_in_bound`` false).  What holds, and is held
-# here: both move data, every op kind the dry-run prices DTensor issues
-# too, and the dry-run's wire bytes do not exceed DTensor's.  Both counts
-# are printed; their differences by site are in PERF.md and ROADMAP.md
-# Queue 3.
+# The dry-run's count of each collective case's step on a (2, 2) mesh of
+# torch's fake process group (fake tensors, a child process) equals the
+# gloo record of the same step on real tensors: the same ops, each as many
+# times, moving the same wire bytes.
 
 
 def _dryrun_collectives(arch, kind):
@@ -421,32 +390,31 @@ def _dryrun_collectives(arch, kind):
 
     mesh = AbstractMesh((2, 2), ("data", "model"))
     if kind == "train":
-        count = dryrun.count_program(_cfg(arch), kind, TRAIN_B, TRAIN_S, [mesh], fused_ce=False)
+        count = dryrun.count_program(_cfg(arch), kind, TRAIN_B, TRAIN_S, [mesh], fused_ce=False,
+                                     timeout=TIMEOUT_S)
     else:
         count = dryrun.count_program(_cfg(arch), kind, DECODE_B, DECODE_S, [mesh],
-                                     cache_dtype=torch.float32, cache_len=DECODE_LEN)
-    stats = count.collectives["2x2"]
-    assert set(stats.by_link) <= {"nvlink"}, stats.by_link  # 4 GPUs lie in one node
-    return {op: [n, round(stats.by_op[op])] for op, n in sorted(stats.counts.items())}
+                                     cache_dtype=torch.float32, cache_len=DECODE_LEN,
+                                     timeout=TIMEOUT_S)
+    return count.collectives["2x2"]
+
+
+def _by_op(stats):
+    return {op: [n, stats.by_op[op]] for op, n in sorted(stats.counts.items())}
 
 
 @pytest.mark.parametrize("case", list(COLLECTIVE_CASES))
 def test_dryrun_collectives_beside_dtensor(results, ranks_dir, case):
-    from repro_torch.analysis import roofline as rl
+    from repro_torch.launch import dryrun
 
     check_case(results, case)
     arch, kind = COLLECTIVE_CASES[case]
     record = json.loads((ranks_dir / f"collectives_{arch}_{kind}.json").read_text())
-    dryrun = _dryrun_collectives(arch, kind)
-    # every group of the (2, 2) mesh is one mesh dim of 2 ranks
-    dtensor = {op: [n, round(rl.ring_wire_bytes(op, b / n, 2) * n)]
-               for op, (n, b) in sorted(record["ops"].items())}
-    print(f"{case}: op, DTensor [count, wire bytes], dry-run [count, wire bytes]")
-    for op in sorted(set(dtensor) | set(dryrun)):
-        print(f"  {op}: {dtensor.get(op)} {dryrun.get(op)}")
-    print("  DTensor by site:", record["sites"])
-    assert dtensor and dryrun, (dtensor, dryrun)
-    assert set(dryrun) <= set(dtensor), (dryrun, dtensor)
-    total = {name: sum(b for _, b in side.values())
-             for name, side in (("dtensor", dtensor), ("dryrun", dryrun))}
-    assert total["dryrun"] <= total["dtensor"], total
+    dtensor = dryrun.event_stats(record["events"], (2, 2))
+    count = _dryrun_collectives(arch, kind)
+    print(f"{case}: op, DTensor on gloo [count, wire bytes], dry-run [count, wire bytes]")
+    for op in sorted(set(dtensor.counts) | set(count.counts)):
+        print(f"  {op}: {_by_op(dtensor).get(op)} {_by_op(count).get(op)}")
+    assert dtensor.counts, record
+    assert _by_op(count) == _by_op(dtensor)
+    assert count.by_link == dtensor.by_link == {"nvlink": dtensor.wire_bytes}

@@ -9,7 +9,9 @@ port in the same rank.  The reshard twin of the JAX package's
 ``test_checkpoint_reshard_across_meshes``: 6 steps on (2, 2), ``save``,
 ``load(shardings=)`` on (1, 4), one more step, within 1e-5 of an
 unsharded run's 7th loss.  Int8 moments: one step on (2, 2), each moment
-within half an int8 step of the unsharded run's.
+within half an int8 step of the unsharded run's.  MLA with the sequence
+sharded, and the vocab-chunked CE on a mesh: logits and gradients against
+the unsharded port, as the first spawn's forward cases.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import pytest
 import torch
 
 from test_torch_distributed import (  # tests/ is on sys.path
-    _cfg, _decode, _full, _mesh, _params, _place, check_case, rank_main, run_ranks,
+    _cfg, _decode, _forward_and_grads, _full, _mesh, _params, _place, check_case, rank_main,
+    run_ranks,
 )
 
 CASES = (
@@ -30,6 +33,8 @@ CASES = (
     "llama_batch1_decode_sequence_sharded",
     "reshard_2x2_to_1x4",
     "int8_moments",
+    "deepseek_mla_sequence_parallel",
+    "llama_fused_ce_grads",
 )
 
 
@@ -47,6 +52,24 @@ def case_llama_batch1_decode_sequence_sharded():
     spec, cache = _decode("llama3-8b", 2, 2, B=1)
     k = cache["decoder"][0]["k"]
     assert Shard(1) in k.placements, (spec["decoder"][0]["k"], k.placements)
+
+
+def case_deepseek_mla_sequence_parallel():
+    """MLA (Dv != D: plain attention by shape, the chunked scan above
+    Sq * Sk = 256^2) with the residual stream sequence-sharded over tp:
+    the plain version runs on each rank's local shards (`ops._local_launch`),
+    as a kernel does; before, it sliced the DTensors themselves."""
+    os.environ["REPRO_SEQ_PARALLEL"] = "1"
+    try:
+        _forward_and_grads("deepseek-v3-671b", 1, 4, seq=260)
+    finally:
+        del os.environ["REPRO_SEQ_PARALLEL"]
+
+
+def case_llama_fused_ce_grads():
+    """The vocab-chunked CE (the hillclimb's ``ce=fused``) on the mesh: each
+    rank's rows against the whole head (`train.fused_ce._on_local_rows`)."""
+    _forward_and_grads("llama3-8b", 2, 2, fused_ce=True)
 
 
 def _train_parts(quantize):

@@ -18,8 +18,10 @@ checkpoint) before each layer's last product.
 The CLI: one cell of ``python -m repro_torch.launch.dryrun`` in a
 subprocess, after which no process group is initialized and no module of
 ``torch.testing._internal`` is loaded beyond those torch's own imports
-load (``import torch`` and ``FakeTensorMode()`` in a bare process); the
-port's sources name no ``torch.testing`` module.
+load (``import torch`` and ``FakeTensorMode()`` in a bare process): the
+collective count's process group and DTensor run in a child per mesh.
+The port's sources name no ``torch.testing`` module.  The cell's
+collective term is in its bound.
 """
 
 from __future__ import annotations
@@ -174,10 +176,10 @@ _SPLITS = [
 
 @pytest.mark.parametrize("shapes,lead,sizes,want", _SPLITS)
 def test_local_split(shapes, lead, sizes, want):
-    """`ops.local_split`, which `_local_launch` (on DTensor placements) and
-    the dry-run (on abstract layouts) both call: the lead's batch and head
-    splits are kept where every input divides them, and grouped heads
-    split with the heads or stay whole per rank."""
+    """`ops.local_split`, which `_local_launch` calls on DTensor
+    placements: the lead's batch and head splits are kept where every
+    input divides them, and grouped heads split with the heads or stay
+    whole per rank."""
     from repro_torch.kernels import ops
 
     assert ops.local_split(list(shapes), [_BSHD, _BSGD], lead, sizes) == want
@@ -276,12 +278,33 @@ def test_cli_cell_uses_no_process_group(tmp_path):
     for key in ("compile_s", "probe_s", "total_params", "active_params", "tokens_per_step",
                 "memory_stats", "collective_by_op", "collective_counts", "roofline_fraction",
                 "step_bound_s", "link", "flops_counted", "bytes_counted",
-                "collectives_counted", "collective_in_bound"):
+                "collectives_counted"):
         assert key in cell, key
-    # the collective term is reported, and kept out of the bound
-    assert cell["collective_in_bound"] is False and cell["collective_s"] > 0
-    assert cell["step_bound_s"] == max(cell["compute_s"], cell["memory_s"])
-    assert cell["dominant"] in ("compute", "memory")
+    assert "collective_in_bound" not in cell
+    # the collective term is in the bound and can decide it
+    assert cell["collective_s"] > 0
+    terms = {k: cell[f"{k}_s"] for k in ("compute", "memory", "collective")}
+    assert cell["step_bound_s"] == max(terms.values())
+    assert cell["dominant"] == max(terms, key=terms.get)
     assert cell["probe_s"] == 0.0 and cell["memory_stats"]["temp_bytes"] == -1
     assert cell["n_devices"] == 256 and cell["link"] == "network"
     assert cell["hlo_flops_per_device"] > 0 and cell["collective_bytes_per_device"] > 0
+
+
+@pytest.mark.parametrize("lever", [("REPRO_AXIS_MAP", "fsdp_all"), ("REPRO_SEQ_PARALLEL", "1")],
+                         ids=["axis=fsdp_all", "sp=1"])
+def test_hillclimb_lever_moves_the_collective_term(lever, monkeypatch):
+    """A hillclimb lever reaches the collective count's child through the
+    environment and changes DTensor's program: pure ZeRO-3 over both mesh
+    dims, or the residual stream sharded over the sequence."""
+    from repro_torch.models.sharding import AbstractMesh
+
+    cfg, mesh = _dense_cfg(), AbstractMesh((2, 2), ("data", "model"))
+    monkeypatch.delenv("REPRO_AXIS_MAP", raising=False)
+    monkeypatch.delenv("REPRO_SEQ_PARALLEL", raising=False)
+    base = dryrun.count_collectives(cfg, "train", 4, 16, mesh, fused_ce=False, timeout=300)
+    monkeypatch.setenv(*lever)
+    moved = dryrun.count_collectives(cfg, "train", 4, 16, mesh, fused_ce=False, timeout=300)
+    assert base.time_s > 0 and moved.time_s > 0
+    assert (moved.counts, moved.wire_bytes) != (base.counts, base.wire_bytes)
+    assert moved.time_s != base.time_s

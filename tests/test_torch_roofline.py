@@ -101,28 +101,9 @@ def test_roofline_matches_jax_at_the_h100_constants(case, monkeypatch):
     got = rl.Roofline(**kw, link=case["link"], link_bw=bw).finalize()
     d = got.to_dict()
     assert d.pop("link") == case["link"] and d.pop("link_bw") == bw
-    assert d.pop("collective_in_bound") is True
     assert d == want.to_dict()
     assert got.roofline_fraction() == want.roofline_fraction()
     assert got.step_time_bound_s() == want.step_time_bound_s()
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_collective_term_kept_out_of_the_bound(case):
-    """``collective_in_bound=False``: the collective term is reported but
-    neither decides ``dominant`` nor enters the bound."""
-    kw = dict(arch="a", shape="s", mesh="m", n_devices=case["n_devices"],
-              hlo_flops_per_device=case["flops"], hlo_bytes_per_device=case["bytes"],
-              collective_bytes_per_device=case["coll"] * 1e4, model_flops=case["mf"],
-              link=case["link"], link_bw=rl.LINK_BW[case["link"]])
-    got = rl.Roofline(**kw, collective_in_bound=False).finalize()
-    assert got.collective_s == case["coll"] * 1e4 / rl.LINK_BW[case["link"]]
-    assert got.step_time_bound_s() == max(got.compute_s, got.memory_s)
-    assert got.dominant == ("compute" if got.compute_s >= got.memory_s else "memory")
-    d = got.to_dict()
-    assert d["collective_in_bound"] is False and d["step_bound_s"] == got.step_time_bound_s()
-    cols = report.roofline_table([d]).splitlines()[2].split(" | ")
-    assert cols[5] == f"({d['collective_s']:.3f})"
 
 
 @pytest.mark.parametrize("kind", ["train", "serve", "prefill"])
