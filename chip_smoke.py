@@ -233,11 +233,36 @@ script exits non-zero:
    --steps 20`` (the 100M llama3 derivative through ``train_elastic``, a
    pool resize, a worker kill and 3 more chunks from the checkpoint) and
    ``examples_torch/serve_llm.py`` (two ``launch.serve`` engines over
-   shared file roots, one SIGKILLed, every request published once); each
-   ``twin`` line holds its tokens/s, seconds and kernel launches (the
-   flash counter > 0 in both, the decode counter > 0 in serve_llm's
-   surviving engine) with the card's name and power limit; a twin that
-   exits non-zero fails the phase.
+   shared file roots, the second started while the first serves, the
+   first SIGKILLed holding live leases, every request published once);
+   each ``twin`` line holds its tokens/s, seconds, kill lines and kernel
+   launches (the flash counter > 0 in both, the decode counter > 0 in
+   serve_llm's surviving engine, and serve_llm's requests outstanding at
+   the kill > 0) with the card's name and power limit; a twin that exits
+   non-zero fails the phase.  serve_llm draws its prompt ids below
+   1000, over a table of 512, as the JAX example does: most prompts hold
+   ids past the vocabulary, whose NaN rows give token 0;
+12. 12a, the vocabulary on the card: an in-process ``ContinuousEngine``
+   (reduced qwen3-32b in bf16, random weights from seed 0, a bf16 cache,
+   ``VOCAB_SERVE``) serves ``VOCAB_PROMPTS`` submitted together, two of
+   which hold ids past the 512-entry table (a NaN row, as ``jnp.take``
+   gives it) and one a negative id (wrapped): those two give ``[0] * 6``,
+   through the CUDA prefill and decode kernels (both counters > 0), the
+   other two give the tokens of the same group with the bad ids replaced
+   (the same group shape: a bf16 prefill's bits depend on its row count),
+   the engine then serves one more request, and at temperature 0.8 the
+   bad rows give 0 too; a device-side assert would fail the synchronize;
+   12b, the six runtime example twins (``RUNTIME_TWINS``: terasort,
+   featurize_reduce, hogwild_ps, multi_driver, driver_failover,
+   net_cluster), each a fresh process as a user runs it, all at once, in
+   at most ``RUNTIME_TWINS_BUDGET_S`` = 45 s: host code only (the port's
+   runtime, stores and ``repro-kvd`` wire on Python and the card
+   machine's torch, no jax); each ``runtime_twin`` line holds its seconds
+   and last lines, and its own result is checked (terasort globally
+   ordered at every shard count, the fit's accuracy at least 0.95, each
+   HOGWILD! relative error below 0.01, driver B's tasks, the failover's
+   empty keyspaces, the daemon client's reconnects at least 1); a twin
+   that exits non-zero or times out fails the phase.
 
 ``python3 chip_smoke.py serve-ab ROOT`` runs no phase: it times phase
 3's llama3-8b decode step on this tree against the tree at ROOT (the
@@ -292,6 +317,15 @@ GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 4, 32  # phases 3f/3g: `Engine.generate` rows
 MEASURED = {}
 ROOFLINE_BUDGET_S = 60  # phase 10
 TWINS_BUDGET_S = 60  # phase 11, both twins
+RUNTIME_TWINS_BUDGET_S = 45  # phase 12b, all six at once
+RUNTIME_TWINS = ("terasort.py", "featurize_reduce.py", "hogwild_ps.py", "multi_driver.py",
+                 "driver_failover.py", "net_cluster.py")
+# phase 12a: the JAX engine's test settings; ids past the 512-entry table
+# (900, 700) and one wrapped (-3)
+VOCAB_SERVE = dict(max_batch=3, max_len=64, max_new_tokens=6, decode_chunk=2, prefill_bucket=8)
+VOCAB_PROMPTS = ([1, 2, 3, 4, 5, 6], [1, 2, 900, 4, 5, 6], [1, 2, -3, 4, 5, 6],
+                 [1, 2, 3, 4, 5, 700])
+VOCAB_MORE = [7, 8, 9, 10, 11, 12]
 DECODE_SLOT_LENS = (16, 300, 57, 128)  # the live slots of `profile_decode`
 
 
@@ -3372,6 +3406,7 @@ def twin_row(args, proc, t0, smi):
     row = {"phase": "twin", "twin": args[0], "args": args[1:], "card": smi,
            "tok_s": float(rate[0]), "seconds": seconds,
            "launches": json.loads(found[-1][len("launches "):]),
+           "kill_lines": [ln for ln in out.splitlines() if "kill" in ln.lower()],
            "last_lines": out.strip().splitlines()[-3:]}
     emit(row)
     return row
@@ -3390,8 +3425,129 @@ def phase_twins(smi):
     check(train["launches"]["flash_attention"] > 0, f"train_lm launched no flash: {train}")
     for name in ("flash_attention", "decode_attention"):
         check(serve["launches"][name] > 0, f"serve_llm's survivor launched no {name}: {serve}")
+    outstanding = [int(w) for ln in serve["kill_lines"]
+                   for w in ln.split() if ln.startswith("SIGKILLed engine-A") and w.isdigit()]
+    check(outstanding and outstanding[0] > 0, f"serve_llm killed A holding nothing: {serve}")
     check(elapsed <= TWINS_BUDGET_S, f"phase 11 took {elapsed:.1f} s > {TWINS_BUDGET_S} s")
     return {"train_lm-twin": train["launches"], "serve_llm-twin": serve["launches"]}
+
+
+def vocab_serve(port, cfg, params, dev, batches, **changes):
+    """Each batch of prompts submitted together and served by one engine
+    until idle -> [[tokens of each request] per batch]."""
+    rp = port["rp"]
+    scfg = port["ServeConfig"](**VOCAB_SERVE, cache_dtype="bfloat16", **changes)
+    eng = port["ContinuousEngine"](cfg, params, scfg, device=dev)
+    store, kv = port["ObjectStore"](), port["KVStore"](num_shards=2)
+    out = []
+    for b, prompts in enumerate(batches):
+        ids = [f"v{b}-{i}" for i in range(len(prompts))]
+        for r, p in zip(ids, prompts):
+            rp.submit(store, kv, r, list(p))
+        eng.run(store, kv, engine_id="vocab", idle_timeout_s=0.3)
+        res = rp.get_results(store, ids, timeout_s=10)
+        out.append([res[r]["tokens"] for r in ids])
+    return out
+
+
+def phase_vocab(torch, port, dev, smi):
+    """Phase 12a: prompts holding ids past the vocabulary (and one
+    negative id) through the port's engine on the card, reduced qwen3-32b
+    in bf16; -> its kernel launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(port["CONFIGS"]["qwen3-32b"].reduced(), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = port["init_params"](cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    wrappers = port["wrappers"]
+    reset_counters(wrappers)
+    bad, more = vocab_serve(port, cfg, params, dev, [VOCAB_PROMPTS, [VOCAB_MORE]])
+    torch.cuda.synchronize()  # a device-side assert raises here
+    launches = {name: wrappers[name].launches for name in ("flash_attention", "decode_attention")}
+    swapped = [[t % cfg.vocab_size if t >= 0 else t for t in p] for p in VOCAB_PROMPTS]
+    (good,) = vocab_serve(port, cfg, params, dev, [swapped])
+    (sampled,) = vocab_serve(port, cfg, params, dev, [VOCAB_PROMPTS], temperature=0.8)
+    torch.cuda.synchronize()
+    row = {"phase": "vocab", "card": smi, "arch": cfg.name, "dtype": cfg.dtype,
+           "prompts": [list(p) for p in VOCAB_PROMPTS], "tokens": bad, "more": more[0],
+           "swapped_prompts": swapped, "swapped_tokens": good, "sampled_tokens": sampled,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(row)
+    for name, n in launches.items():
+        check(n > 0, f"phase 12a launched no {name}: {launches}")
+    for i in (1, 3):
+        check(bad[i] == [0] * 6, f"out-of-vocabulary prompt {VOCAB_PROMPTS[i]} gave {bad[i]}")
+        check(sampled[i] == [0] * 6, f"sampled out-of-vocabulary row {i} gave {sampled[i]}")
+    for i in (0, 2):
+        check(bad[i] == good[i], f"prompt {i}: {bad[i]} beside bad ids, {good[i]} without")
+        check(all(0 <= t < cfg.vocab_size for t in bad[i] + sampled[i]), f"prompt {i}: {bad[i]}")
+    check(len(more[0]) == 6 and all(0 <= t < cfg.vocab_size for t in more[0]),
+          f"the engine's next request gave {more[0]}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def runtime_twin_row(script, proc, seconds, timed_out, out, err, smi):
+    """A finished runtime twin -> its ``runtime_twin`` row, its own result
+    checked from what it printed."""
+    import re
+
+    check(not timed_out, f"{script} did not finish in {CHILD_TIMEOUT_S} s: {out[-1500:]}")
+    check(proc.returncode == 0, f"{script} exited {proc.returncode}: {out[-1500:]} {err[-2500:]}")
+    lines = out.strip().splitlines()
+    name = script[:-3]
+    if name == "terasort":
+        check(sum("globally ordered: True" in ln for ln in lines) == 3, f"terasort: {lines}")
+    elif name == "featurize_reduce":
+        acc = re.findall(r"fit accuracy: ([0-9.]+)", out)
+        check(bool(acc) and float(acc[0]) >= 0.95, f"featurize_reduce: {lines}")
+    elif name == "hogwild_ps":
+        errs = [float(e) for e in re.findall(r"rel-err=([0-9.]+)", out)]
+        check(len(errs) == 3 and max(errs) < 0.01, f"hogwild_ps: {lines}")
+    elif name == "multi_driver":
+        check("both drivers executed tasks of a job only A submitted" in lines, f"{lines}")
+    elif name == "driver_failover":
+        check("[parent] sched/job/ and shuffle/ keyspaces empty after GC" in lines, f"{lines}")
+    elif name == "net_cluster":
+        rec = re.findall(r"client reconnects: ([0-9]+)", out)
+        check(bool(rec) and int(rec[0]) >= 1, f"net_cluster: {lines}")
+    row = {"phase": "runtime_twin", "twin": script, "card": smi, "seconds": seconds,
+           "last_lines": lines[-3:]}
+    emit(row)
+    return row
+
+
+def phase_runtime_twins(smi):
+    """Phase 12b: the six runtime twins, each as a user runs it, all at
+    once (each waited for on a thread of its own, so each has its own
+    seconds from the phase's start); -> their rows."""
+    t0 = time.perf_counter()
+    procs = {script: start_twin([script]) for script in RUNTIME_TWINS}
+    done = {}
+
+    def reap(script, proc):
+        timed_out = False
+        try:
+            out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            proc.kill()
+            out, err = proc.communicate()
+        done[script] = (time.perf_counter() - t0, timed_out, out, err)
+
+    waiters = [threading.Thread(target=reap, args=a, name=f"reap-{a[0]}") for a in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    rows = [runtime_twin_row(script, proc, *done[script], smi) for script, proc in procs.items()]
+    elapsed = time.perf_counter() - t0
+    emit({"phase": "runtime_twins_summary", "card": smi, "seconds": elapsed,
+          "budget_s": RUNTIME_TWINS_BUDGET_S,
+          "per_twin": {r["twin"]: r["seconds"] for r in rows}})
+    check(elapsed <= RUNTIME_TWINS_BUDGET_S,
+          f"phase 12b took {elapsed:.1f} s > {RUNTIME_TWINS_BUDGET_S} s")
+    return rows
 
 
 def load_port():
@@ -3565,6 +3721,10 @@ def main() -> int:
     lap("10 the dry-run's roofline against the card")
     launches.update(phase_twins(smi))
     lap("11 the example twins")
+    launches["qwen3-32b-vocab"] = phase_vocab(torch, port, dev, smi)
+    lap("12a out-of-vocabulary ids on the card")
+    phase_runtime_twins(smi)
+    lap("12b the runtime example twins")
 
     replaces = {
         "decode_attention": ("src/repro/kernels/decode_attention.py:96", DECODE_SRC),

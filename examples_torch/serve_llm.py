@@ -33,8 +33,9 @@ makes the duplicate a no-op.
 Below, the real thing: two ``repro_torch.launch.serve`` engine
 subprocesses over shared ``FileKVStore``/``FileBackend`` directories, a
 client that watches tokens stream in *before* completion, and a SIGKILL
-landing on engine A while its slots are mid-decode.  Engine B reaps A's
-lapsed leases and finishes the job: every request completes exactly once.
+landing on engine A while its slots are mid-decode (B is started while A
+serves, so A surely holds leases then).  Engine B reaps A's lapsed leases
+and finishes the job: every request completes exactly once.
 The engines run on the GPU (the hand-written attention kernels) unless
 ``--device cpu`` is given; they never fall back to the CPU.
 
@@ -54,7 +55,7 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 N_REQ = 8
 
 
-def _spawn_engine(kv_root: str, obj_root: str, engine_id: str, device: str) -> subprocess.Popen:
+def _start_engine(kv_root: str, obj_root: str, engine_id: str, device: str) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=_SRC)
     proc = subprocess.Popen(
         [
@@ -67,20 +68,22 @@ def _spawn_engine(kv_root: str, obj_root: str, engine_id: str, device: str) -> s
         ],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
     )
+    return proc
+
+
+def _ready(proc: subprocess.Popen) -> None:
     line = proc.stdout.readline().strip()
     assert line.startswith("READY"), f"engine failed to start: {line!r}"
-    return proc
 
 
 def main(argv=None) -> dict:
     """-> {"results": {request id: result}, "served": {engine: count},
     "tokens": tokens published, "seconds": from submit to the last
-    result}."""
+    result, "outstanding_at_kill": requests not done when A died}."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", help="the engines' device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import CONFIGS
     from repro_torch.serve import request_plane as rp
     from repro_torch.storage import FileBackend, FileKVStore, ObjectStore
 
@@ -90,24 +93,24 @@ def main(argv=None) -> dict:
         kv = FileKVStore(kv_root, num_shards=2)
         store = ObjectStore(backend=FileBackend(obj_root))
 
-        victim = _spawn_engine(kv_root, obj_root, "engine-A", args.device)
-        survivor = _spawn_engine(kv_root, obj_root, "engine-B", args.device)
-        print("two engines up (separate processes, shared directories)")
+        victim = _start_engine(kv_root, obj_root, "engine-A", args.device)
+        _ready(victim)
+        # B starts now and is READY seconds later, while A serves: A holds
+        # live leases when it dies (with both up first, B may lease every
+        # request before A holds one, and then the kill re-serves nothing)
+        survivor = _start_engine(kv_root, obj_root, "engine-B", args.device)
+        print("engine-A up, engine-B starting (separate processes, shared directories)")
 
-        # prompt ids inside the reduced vocabulary: the JAX example draws
-        # them below 1000, which JAX's gather tolerates; the port's lookup
-        # raises on an id past the table
-        vocab = CONFIGS["qwen3-32b"].reduced().vocab_size
         rng = np.random.default_rng(0)
         t0 = time.perf_counter()
         ids = [f"req-{i:03d}" for i in range(N_REQ)]
         for r in ids:
-            rp.submit(store, kv, r, rng.integers(0, min(1000, vocab), size=6).tolist())
+            rp.submit(store, kv, r, rng.integers(0, 1000, size=6).tolist())
         print(f"submitted {N_REQ} requests")
 
         # SIGKILL engine A while it holds a live lease on an unfinished
         # request — its slots are mid-decode (the JAX example kills at the
-        # first result, which a fast engine pair may have passed entirely)
+        # first result, which a fast engine may have passed entirely)
         deadline = time.monotonic() + 120.0
         while time.monotonic() < deadline:
             done = store.exists_many([rp.done_key(r) for r in ids])
@@ -115,13 +118,15 @@ def main(argv=None) -> dict:
                     and (kv.get(rp.lease_key(r)) or {}).get("engine") == "engine-A"]
             if held or len(done) == N_REQ:
                 break
-            if victim.poll() is not None and survivor.poll() is not None:
-                raise RuntimeError("both engines exited: " + victim.stdout.read()[-2000:])
-            time.sleep(0.05)
+            if victim.poll() is not None:
+                raise RuntimeError("engine-A exited: " + victim.stdout.read()[-2000:])
+            time.sleep(0.01)
         victim.kill()
         victim.wait()
         done = store.exists_many([rp.done_key(r) for r in ids])
-        print(f"SIGKILLed engine-A with {N_REQ - len(done)} requests outstanding")
+        outstanding = N_REQ - len(done)
+        print(f"SIGKILLed engine-A with {outstanding} requests outstanding")
+        _ready(survivor)
 
         # tokens stream as rpush chunks: watch a still-pending request
         # arrive in pieces (served by B — possibly a re-serve of one of
@@ -155,7 +160,8 @@ def main(argv=None) -> dict:
             if line.startswith("launches ") or "served" in line:
                 print(line)
         kv.close()
-    return {"results": results, "served": served, "tokens": tokens, "seconds": seconds}
+    return {"results": results, "served": served, "tokens": tokens, "seconds": seconds,
+            "outstanding_at_kill": outstanding}
 
 
 if __name__ == "__main__":

@@ -53,7 +53,7 @@ from .mlstm import mlstm_plain
 
 __all__ = [
     "attention_chunked", "decode_attention", "flash_attention", "mlstm_decode_step",
-    "mlstm_parallel", "slstm_recurrence", "ssd_decode_step", "ssd_scan",
+    "mlstm_parallel", "slstm_recurrence", "slstm_scan", "ssd_decode_step", "ssd_scan",
 ]
 
 NEG_INF = -1e30
@@ -454,3 +454,8 @@ def mlstm_decode_step(
     h_num = torch.bmm(cb, qs.reshape(B * H, D, 1)).view(B, H, D)
     h_den = torch.maximum((n * qs).sum(dim=-1).abs(), torch.exp(-m_new))
     return (h_num / h_den[..., None]).to(q_t.dtype)
+
+
+# the sLSTM scan over (B, S, H, D) inputs and an (H, D, D, 4) recurrent
+# weight, JAX's ``ops.slstm_scan``; the xLSTM block runs `slstm_recurrence`
+slstm_scan = ref.slstm_reference

@@ -267,3 +267,40 @@ def mlstm_prefill_replay(
             c, n, m, q[:, t], k[:, t], v[:, t], i_gate[:, t], f_gate[:, t]
         )
     return c, n, m
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory recurrent cell with exponential gating)
+# ---------------------------------------------------------------------------
+
+def slstm_reference(
+    x: torch.Tensor,  # (B, S, H, D) pre-projected inputs (per gate computed outside)
+    gates_x: torch.Tensor,  # (B, S, H, D, 4) input contributions to i, f, z, o
+    r_kernel: torch.Tensor,  # (H, D, D, 4) block-diagonal recurrent weights
+    init: Optional[Tuple[torch.Tensor, ...]] = None,
+) -> torch.Tensor:
+    """sLSTM with exponential input gate, sigmoid/exp forget gate and
+    stabilizer state (xLSTM eq. 7-18): (B, S, H, D) hidden states in x's
+    dtype.  Strictly sequential, one step per token, in fp32; ``init`` is
+    the (c, n, m, h) carry, each (B, H, D)."""
+    B, S, H, D = x.shape
+    zeros = torch.zeros((B, H, D), dtype=torch.float32, device=x.device)
+    c, n, m, h = init if init is not None else (zeros, zeros, zeros - 1e9, zeros)
+    gx = gates_x.float()
+    r = r_kernel.float()
+    hs = []
+    for t in range(S):
+        pre = gx[:, t] + torch.einsum("bhd,hdke->bhke", h, r)
+        i_t, f_t = pre[..., 0], pre[..., 1]
+        z_t = torch.tanh(pre[..., 2])
+        o_t = torch.sigmoid(pre[..., 3])
+        logf = torch.nn.functional.logsigmoid(f_t)
+        m_new = torch.maximum(logf + m, i_t)
+        igate = torch.exp(i_t - m_new)
+        fgate = torch.exp(logf + m - m_new)
+        c = fgate * c + igate * z_t
+        n = fgate * n + igate
+        m = m_new
+        h = o_t * c / torch.clamp_min(n, 1.0)
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype)

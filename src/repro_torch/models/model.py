@@ -98,6 +98,19 @@ def init_params(
     return p
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table``'s rows at ``ids``, as ``jnp.take`` gives them: an id in
+    ``[-V, 0)`` wraps to ``V + id``, any id outside ``[-V, V)`` gives a NaN
+    row.  The index is clamped before the lookup, so no id reaches the
+    device out of range (on the card that would be a device-side assert,
+    fatal to every request the process holds)."""
+    V = table.shape[0]
+    ids = torch.where(ids < 0, ids + V, ids)
+    valid = (ids >= 0) & (ids < V)
+    rows = table[ids.clamp(0, V - 1)]
+    return torch.where(valid[..., None], rows, rows.new_full((), float("nan")))
+
+
 def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     table = p["embed"]["tok"]
     # on a mesh every token is replicated for the vocab-parallel lookup
@@ -105,7 +118,7 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Te
     # JAX's take; DTensor's embedding mis-masks tokens sharded over another
     # mesh dim (torch 2.13), and its backward of indexing fails (2.11)
     tokens = shard(tokens, *([None] * tokens.dim()))
-    h = F.embedding(tokens, table) if is_dtensor(table) else table[tokens]
+    h = F.embedding(tokens, table) if is_dtensor(table) else take_rows(table, tokens)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
     # the lookup's partial rows summed here, in the residual stream's layout

@@ -54,14 +54,20 @@ def sample_tokens(
     temperature: float,
 ) -> torch.Tensor:
     """(B,) int64 tokens; row i at temperature > 0 draws from a generator
-    seeded from (seeds[i], steps[i])."""
+    seeded from (seeds[i], steps[i]).  A row holding NaN gives its first
+    NaN's index (0 for an all-NaN row), as ``jax.random.categorical``'s
+    Gumbel argmax does; greedy ``argmax`` gives the same."""
     if temperature <= 0 or seeds is None:
         return torch.argmax(logits, dim=-1)
     B = logits.shape[0]
     steps = np.broadcast_to(np.asarray(steps, np.int64), (B,))
     probs = torch.softmax(logits.float() / temperature, dim=-1)
     out = torch.empty((B,), dtype=torch.int64, device=logits.device)
+    nan_rows = torch.isnan(logits).any(dim=-1).tolist()
     for i in range(B):
+        if nan_rows[i]:
+            out[i] = torch.argmax(logits[i])
+            continue
         g = torch.Generator(device=logits.device)
         # the CPU generator keeps only 32 bits of its seed: hash both into them
         g.manual_seed(zlib.crc32(struct.pack("<qq", int(seeds[i]), int(steps[i]))))

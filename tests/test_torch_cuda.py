@@ -1009,3 +1009,28 @@ def test_sharded_program_on_a_one_card_nccl_mesh(cuda):
     finally:
         dist.destroy_process_group()
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_of_vocabulary_lookup_and_sampler_on_the_card(cuda, dtype):
+    """Ids past the table give NaN rows and negative ids wrap, on the card
+    as on the CPU, with no device-side assert; a NaN row's sampled and
+    greedy token is 0, and the other rows keep their draws."""
+    from repro_torch.models.model import take_rows
+    from repro_torch.serve.engine import sample_tokens
+
+    V = 512
+    table = torch.randn(V, 16, generator=torch.Generator().manual_seed(0)).to(dtype)
+    ids = torch.tensor([[0, V - 1, -1, -V, V, V + 388, -V - 1]])
+    got = take_rows(table.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), take_rows(table, ids), rtol=0, atol=0, equal_nan=True)
+    assert got.isnan().all(-1).tolist() == [[False, False, False, False, True, True, True]]
+    logits = torch.randn(3, V, generator=torch.Generator().manual_seed(1)).to(cuda)
+    clean = sample_tokens(logits, [1, 2, 3], 0, 0.8)
+    logits[1] = float("nan")
+    toks = sample_tokens(logits, [1, 2, 3], 0, 0.8)
+    torch.cuda.synchronize()
+    assert toks.tolist() == [clean[0].item(), 0, clean[2].item()]
+    assert sample_tokens(logits, None, 0, 0.0)[1].item() == 0

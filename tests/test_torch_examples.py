@@ -7,11 +7,16 @@ each held to what its JAX example holds or gives.
   reload onto (2, 4); the losses carry on across the remesh, and the
   first losses equal the JAX example's step on the same weights
   (`bridge.params_from_jax`) and batches (JAX's ``synthetic_batch``).
-* serve_llm: two engine processes over shared roots, one SIGKILLed; every
-  request is published once.
+* serve_llm: two engine processes over shared roots, one SIGKILLed with
+  requests outstanding; every request is published once.
 * train_lm: the elastic trainer's loss falls, and after a worker kill it
   resumes from the checkpoint.
-* every twin's module docstring passes `tools/doctest_examples.py`.
+* every twin's module docstring passes `tools/doctest_examples.py`, and
+  `examples/` and `examples_torch/` hold the same file names.
+
+The six runtime twins (terasort, featurize_reduce, hogwild_ps,
+multi_driver, driver_failover, net_cluster) are held to their JAX examples
+in `tests/test_torch_examples_runtime.py`.
 """
 
 from __future__ import annotations
@@ -29,7 +34,12 @@ import torch
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
-TWINS = ("elastic_remesh", "train_lm", "serve_llm", "quickstart")
+TWINS = ("elastic_remesh", "train_lm", "serve_llm", "quickstart", "terasort",
+         "featurize_reduce", "hogwild_ps", "multi_driver", "driver_failover", "net_cluster")
+# the doctest examples of each twin's header, as in its JAX example's
+# (quickstart's has one more: the partial that stands in for JAX's lambda)
+DOCTESTS = {"quickstart": 3, "serve_llm": 10, "terasort": 5, "multi_driver": 8,
+            "driver_failover": 7, "net_cluster": 17}
 
 
 def _load(folder, name):
@@ -46,6 +56,9 @@ def _load(folder, name):
 
 
 def test_every_twin_exists_beside_its_jax_example():
+    names = lambda folder: sorted(  # noqa: E731
+        f[:-3] for f in os.listdir(os.path.join(ROOT, folder)) if f.endswith(".py"))
+    assert names("examples") == names("examples_torch") == sorted(TWINS)
     for name in TWINS:
         assert os.path.exists(os.path.join(ROOT, "examples", f"{name}.py")), name
         src = open(os.path.join(ROOT, "examples_torch", f"{name}.py")).read()
@@ -58,8 +71,10 @@ def test_doctest_headers():
     out = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "doctest_examples.py")]
                          + paths, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "0 failures" in out.stdout and "quickstart.py: 3 examples" in out.stdout
-    assert "serve_llm.py: 10 examples" in out.stdout
+    assert "0 failures" in out.stdout
+    for name, n in DOCTESTS.items():
+        assert f"{name}.py: {n} examples, 0 failures" in out.stdout, name
+    assert f"{sum(DOCTESTS.values())} examples, 0 failures" in out.stdout
 
 
 def test_quickstart_equals_the_jax_example():
@@ -128,6 +143,8 @@ def test_serve_llm_publishes_every_request_once():
     assert sum(got["served"].values()) == twin.N_REQ
     assert all(got["results"][r]["tokens"] for r in ids)
     assert got["tokens"] > 0 and got["seconds"] > 0
+    # A died holding work, and B served what it left
+    assert got["outstanding_at_kill"] > 0 and got["served"].get("engine-B", 0) > 0
 
 
 def test_train_lm_loss_falls_and_resumes_after_a_kill():
